@@ -1,0 +1,154 @@
+"""The eval render: rays -> query -> gather -> aggregate -> volume march.
+
+Counterpart of `sgnerf_tpu/models/renderer.py` (`render_rays`,
+`gather_and_aggregate`, `_shade_and_march`; reference
+NeuralPointsRayMarching.forward, neural_points_volumetric_model.py:435-668).
+Rays are never compacted: a ray whose samples hit no occupied voxel gets
+sigma 0 everywhere and renders to bg_color.
+
+`--attr_dedup` is served by the plain row gather. The reference's
+`dedup_tile_gather` is a TPU one-hot-matmul way to gather each tile's
+distinct rows once; below its cap it returns exactly the rows of the plain
+gather, and the plain gather has no cap to overflow.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..ops.camera import w2pers
+from ..ops.grid import PointGrid
+from ..ops.march import (BLEND_FUNCS, RENDER_FUNCS, TONE_MAPS, ray_march,
+                         ray_dist_from_z)
+from ..ops.query import query_neighbors
+from ..ops.raygen import near_far_linear_ray_generation
+from .aggregator import AggregatorConfig, aggregate
+from .point_cloud import NeuralPointCloud
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Static render/query configuration of the eval slice (the reference
+    RenderConfig's fields that the eval render reads, same defaults)."""
+    agg: AggregatorConfig = AggregatorConfig()
+    z_depth_dim: int = 400           # raw samples per ray (D)
+    SR: int = 24                     # shading points per ray
+    K: int = 8                       # neighbours per shading point
+    vsize: Tuple[float, float, float] = (0.008, 0.008, 0.008)
+    radius_limit_scale: float = 4.0
+    which_render_func: str = "radiance"
+    which_blend_func: str = "alpha"
+    which_tonemap_func: str = "off"
+    raydist_mode_unit: int = 1
+    knn_mode: str = "exact"          # "fused": kernel K1 (bf16 cache only)
+    gather_dtype: str = "float32"    # "bfloat16" attribute table
+    compute_depth: int = 0           # emit coarse_depth
+
+    @property
+    def radius_limit(self) -> float:
+        return self.radius_limit_scale * max(self.vsize[0], self.vsize[1])
+
+
+def attribute_table(cloud: NeuralPointCloud, gather_dtype: str) -> torch.Tensor:
+    """Per-point attributes packed into one (N, 10+F) row table
+    [xyz | embedding | color | dir | conf], in bf16 when asked: one gather
+    serves every attribute."""
+    packed = torch.cat([cloud.xyz, cloud.embedding, cloud.color, cloud.dir,
+                        cloud.conf], dim=-1)
+    return packed.to(torch.bfloat16) if gather_dtype == "bfloat16" else packed
+
+
+def render_rays(params: Dict, cloud: NeuralPointCloud, grid: PointGrid,
+                cfg: RenderConfig, *, campos: torch.Tensor,
+                raydir: torch.Tensor, camrotc2w: torch.Tensor, near, far,
+                bg_color: Optional[torch.Tensor] = None,
+                table: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """campos (B,3), raydir (B,R,3), camrotc2w (B,3,3) -> output dict with
+    coarse_raycolor (B,R,3) and the per-sample march terms. `table` is the
+    packed attribute table (built from the cloud when not given)."""
+    raypos, _, _, ray_ts = near_far_linear_ray_generation(
+        campos, raydir, cfg.z_depth_dim, near=near, far=far)
+    # with the two-level compaction on, positions are recomputed from
+    # (campos, dir, t) for the selected samples only
+    q = query_neighbors(grid, raypos, K=cfg.K,
+                        SR=cfg.SR, radius_limit=cfg.radius_limit,
+                        knn_mode=cfg.knn_mode, campos=campos, raydir=raydir,
+                        tvals=ray_ts)
+    if table is None:
+        table = attribute_table(cloud, cfg.gather_dtype)
+    return _shade_and_march(params, cloud, cfg, table, q.sample_pidx,
+                            q.sample_loc_w, q.ray_mask, campos, raydir,
+                            camrotc2w, bg_color)
+
+
+def gather_and_aggregate(params, cloud, cfg: RenderConfig, table, sample_pidx,
+                         sample_loc_w, campos, raydir, camrotc2w):
+    """Neighbour-attribute gather + per-neighbour aggregation. Returns
+    (decoded (B,R,SR,4), ray_valid, weight, conf_coefficient, sample_loc
+    (perspective coords))."""
+    B, R, _ = raydir.shape
+    agg = cfg.agg
+    mask = sample_pidx >= 0
+    pid = sample_pidx.clamp(0, cloud.capacity - 1).long()
+    g = table[pid].to(torch.float32)
+    F = cloud.embedding.shape[-1]
+    # zero the padding gathers so masked rows stay finite
+    sampled_xyz = g[..., 0:3] * mask[..., None]
+    sampled_embedding = g[..., 3:3 + F] * mask[..., None]
+    sampled_conf = g[..., 9 + F:10 + F]
+
+    pers = torch.stack([w2pers(sampled_xyz[b].reshape(-1, 3), camrotc2w[b],
+                               campos[b]) for b in range(B)]).reshape(
+        sampled_xyz.shape)
+    sample_loc = torch.stack([w2pers(sample_loc_w[b].reshape(-1, 3),
+                                     camrotc2w[b], campos[b])
+                              for b in range(B)]).reshape(sample_loc_w.shape)
+    decoded, ray_valid, weight, conf_coefficient = aggregate(
+        params, agg,
+        sampled_embedding=sampled_embedding,
+        sampled_conf=sampled_conf,
+        sampled_xyz=sampled_xyz,
+        sampled_xyz_pers=pers,
+        sample_pnt_mask=mask,
+        sample_loc=sample_loc,
+        sample_loc_w=sample_loc_w,
+        sample_ray_dirs=raydir[:, :, None, :].expand(B, R, cfg.SR, 3),
+        Rw2c=cloud.Rw2c, vsize=cfg.vsize)
+    return decoded, ray_valid, weight, conf_coefficient, sample_loc
+
+
+def _shade_and_march(params, cloud, cfg: RenderConfig, table, sample_pidx,
+                     sample_loc_w, ray_mask, campos, raydir, camrotc2w,
+                     bg_color):
+    """Everything downstream of the neighbour query."""
+    B, R, _ = raydir.shape
+    decoded, ray_valid, weight, conf_coefficient, sample_loc = \
+        gather_and_aggregate(params, cloud, cfg, table, sample_pidx,
+                             sample_loc_w, campos, raydir, camrotc2w)
+    ray_dist = ray_dist_from_z(sample_loc[..., 2], ray_valid, cfg.vsize[2],
+                               cfg.raydist_mode_unit)
+    (ray_color, _, opacity, acc_transmission, blend_weight,
+     background_transmission, _) = ray_march(
+        ray_dist, ray_valid, decoded, RENDER_FUNCS[cfg.which_render_func],
+        BLEND_FUNCS[cfg.which_blend_func], bg_color)
+    output = {
+        "coarse_raycolor": TONE_MAPS[cfg.which_tonemap_func](ray_color),
+        "coarse_point_opacity": opacity,                    # (B,R,SR)
+        "coarse_is_background": background_transmission,    # (B,R,1)
+        "queried_shading": (~ray_valid.any(dim=-1, keepdim=True)).to(
+            torch.float32).expand(B, R, 3),
+        "ray_mask": ray_mask,                               # (B,R) bool
+        "ray_valid": ray_valid,
+        "weight": weight,
+        "blend_weight": blend_weight,
+        "conf_coefficient": conf_coefficient,
+    }
+    if cfg.compute_depth:
+        # alpha-blend-weighted mean camera-space depth (reference
+        # return_depth, neural_points_volumetric_model.py:620-624)
+        w = opacity * acc_transmission
+        output["coarse_depth"] = ((w * sample_loc[..., 2]).sum(-1)
+                                  / (w.sum(-1) + 1e-6))
+    return output
