@@ -1,15 +1,26 @@
-"""ScanNet per-scene dataset: full-image items for the eval render.
+"""ScanNet per-scene dataset (counterpart of
+`sgnerf_tpu/data/scannet_ft_dataset.py`; reference
+data/scannet_ft_dataset.py).
 
-Counterpart of the eval half of `sgnerf_tpu/data/scannet_ft_dataset.py`
-(reference data/scannet_ft_dataset.py): the `exported/{color,pose,
-intrinsic}` layout, the |c2w| < 30 pose filter, the train/test split by
-`train_step`, and full-frame items over the `edge_filter` window. Random
-pixel sampling and point loading come with training (ROADMAP item 8).
+  * the `exported/{color,pose,depth,intrinsic}` layout and the |c2w| < 30
+    pose filter;
+  * train split = every `train_step`-th frame, test = the rest;
+  * `get_item(idx, rng=)`: `random_sample_size`^2 pixels drawn by
+    `--random_sample` (random / random2 / patch; any other value is the full
+    frame over the `edge_filter` window), their ray directions and gt
+    colours, per-ray gt depth when a depth loss asks for it, and the
+    background colour (`--bg_color random` draws black or white per item);
+  * `load_init_points`: exported/pcd.ply (+ exported/points.pth colours
+    and labels) with the `ranges` crop;
+  * `get_campos_ray`: camera centres and centre-pixel directions.
+
+The same numpy generator state draws the same pixels as the JAX dataset.
+Semantic labels come with the semantic slice (ROADMAP item 11).
 """
 from __future__ import annotations
 
 import os
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -46,8 +57,7 @@ class ScannetFtDataset:
         if bg == "red":
             return (1.0, 0.0, 0.0)
         if bg == "random":
-            raise NotImplementedError(
-                "--bg_color random is a training option (ROADMAP item 8)")
+            return "random"
         return tuple(float(x) for x in bg.split(","))
 
     def _pose_path(self, vid):
@@ -57,6 +67,18 @@ class ScannetFtDataset:
     def _color_path(self, vid):
         return os.path.join(self.data_dir, self.scan, "exported/color",
                             f"{vid}.jpg")
+
+    def _depth_path(self, vid):
+        return os.path.join(self.data_dir, self.scan, "exported/depth",
+                            f"{vid}.png")
+
+    def _needs_depth(self) -> bool:
+        """Per-ray gt depth is sampled only for a depth loss or output."""
+        o = self.opt
+        return bool(getattr(o, "depth_loss_items", ()) or
+                    getattr(o, "compute_depth", 0) or
+                    any(n.startswith("ray_depth_masked")
+                        for n in (getattr(o, "color_loss_items", ()) or ())))
 
     def filter_valid_id(self, id_list: List[int]) -> List[int]:
         return [vid for vid in id_list
@@ -81,35 +103,119 @@ class ScannetFtDataset:
                         else self.test_id_list)
 
     def __len__(self):
-        return len(self.id_list)
+        max_len = getattr(self.opt, "max_len", -1)
+        return len(self.id_list) if max_len <= 0 else max_len
 
-    def get_item(self, idx: int) -> Dict:
-        """Full-frame item of view `idx` over the edge_filter window."""
+    def _sample_pixels(self, rng: np.random.Generator):
+        margin = getattr(self.opt, "edge_filter", 3)
+        s = self.opt.random_sample_size
+        mode = self.opt.random_sample
+        if mode == "patch":
+            ix = rng.integers(margin, self.width - margin - s + 1)
+            iy = rng.integers(margin, self.height - margin - s + 1)
+            px, py = np.meshgrid(np.arange(ix, ix + s, dtype=np.float32),
+                                 np.arange(iy, iy + s, dtype=np.float32))
+        elif mode == "random":
+            px = rng.integers(margin, self.width - margin,
+                              size=(s, s)).astype(np.float32)
+            py = rng.integers(margin, self.height - margin,
+                              size=(s, s)).astype(np.float32)
+        elif mode == "random2":
+            px = rng.uniform(margin, self.width - margin - 1e-5,
+                             size=(s, s)).astype(np.float32)
+            py = rng.uniform(margin, self.height - margin - 1e-5,
+                             size=(s, s)).astype(np.float32)
+        else:  # full frame
+            px, py = np.meshgrid(
+                np.arange(margin, self.width - margin, dtype=np.float32),
+                np.arange(margin, self.height - margin, dtype=np.float32))
+        return px, py
+
+    def get_item(self, idx: int, full_img: bool = False,
+                 rng: Optional[np.random.Generator] = None) -> Dict:
         from PIL import Image
+        rng = rng or np.random.default_rng()
         vid = self.id_list[idx]
         with Image.open(self._color_path(vid)) as im:
             img = np.asarray(im.resize(self.img_wh, Image.NEAREST),
                              dtype=np.float32) / 255.0
         c2w = np.loadtxt(self._pose_path(vid)).astype(np.float32)
-        margin = getattr(self.opt, "edge_filter", 3)
-        px, py = np.meshgrid(
-            np.arange(margin, self.width - margin, dtype=np.float32),
-            np.arange(margin, self.height - margin, dtype=np.float32))
-        pix = np.stack([px, py], axis=-1).reshape(-1, 2)
+        px, py = self._sample_pixels(rng)
+        pix = np.stack([px, py], axis=-1)
+        ipx, ipy = px.astype(np.int32), py.astype(np.int32)
         raydir = get_dtu_raydir(
             torch.from_numpy(pix), torch.from_numpy(self.intrinsic),
             torch.from_numpy(c2w[:3, :3]),
-            getattr(self.opt, "dir_norm", 0) > 0).numpy()
-        return {
+            getattr(self.opt, "dir_norm", 0) > 0).numpy().reshape(-1, 3)
+        item = {
             "intrinsic": self.intrinsic,
             "campos": c2w[:3, 3],
+            "c2w": c2w,
             "camrotc2w": c2w[:3, :3],
             "near": np.float32(self.near_far[0]),
             "far": np.float32(self.near_far[1]),
             "h": self.height, "w": self.width, "id": idx, "vid": vid,
-            "pixel_idx": pix,
+            "pixel_idx": pix.reshape(-1, 2),
             "raydir": raydir.astype(np.float32),
-            "gt_image": img[py.astype(np.int32),
-                            px.astype(np.int32)].reshape(-1, 3),
-            "bg_color": np.asarray(self.bg_color, np.float32),
+            "gt_image": img[ipy, ipx].reshape(-1, 3).astype(np.float32),
         }
+        if self._needs_depth():
+            dpath = self._depth_path(vid)
+            if os.path.exists(dpath):
+                with Image.open(dpath) as im:
+                    dm = np.asarray(im.resize(self.img_wh, Image.NEAREST),
+                                    dtype=np.float32) / 1000.0
+                dm[(dm > 8.0) | (dm < 0.3)] = 0    # read_depth clipping
+                item["gt_depth"] = dm[ipy, ipx].reshape(-1)
+                item["gt_mask"] = (item["gt_depth"] > 0).astype(np.float32)
+        if full_img:
+            item["full_image"] = img
+        if self.bg_color == "random":
+            item["bg_color"] = (np.ones(3, np.float32) if rng.uniform() > 0.5
+                                else np.zeros(3, np.float32))
+        else:
+            item["bg_color"] = np.asarray(self.bg_color, np.float32)
+        return item
+
+    __getitem__ = get_item
+
+    def load_init_points(self):
+        """Returns (xyz [N,3], feats [N,3] in 0..255 or None, labels [N] or
+        None)."""
+        from ..utils.ply import read_ply
+        d = read_ply(os.path.join(self.data_dir, self.scan,
+                                  "exported/pcd.ply"))
+        xyz = np.stack([d["x"], d["y"], d["z"]], -1).astype(np.float32)
+        pth = os.path.join(self.data_dir, self.scan, "exported/points.pth")
+        feats, labels = None, None
+        if os.path.exists(pth):
+            data = torch.load(pth, map_location="cpu", weights_only=False)
+            feats = (np.asarray(data[1]) + 1.0) * 127.5
+            labels = np.asarray(data[2]) if len(data) > 2 else None
+        if feats is None and "red" in d:
+            feats = np.stack([d["red"], d["green"], d["blue"]],
+                             -1).astype(np.float32)
+        ranges = np.asarray(getattr(self.opt, "ranges",
+                                    (-100.0,) * 3 + (100.0,) * 3))
+        if ranges[0] > -99.0:
+            mask = np.all((xyz >= ranges[:3]) & (xyz <= ranges[3:]), axis=-1)
+            xyz = xyz[mask]
+            if feats is not None and len(feats) == len(mask):
+                feats = feats[mask]
+            if labels is not None and len(labels) == len(mask):
+                labels = labels[mask]
+        return xyz, feats, labels
+
+    def get_campos_ray(self):
+        """(camera centres (V,3), unit centre-pixel directions (V,3)) of the
+        split's views."""
+        center = np.asarray(self.img_wh, np.float32)[None] // 2
+        camposes, centerdirs = [], []
+        for vid in self.id_list:
+            c2w = np.loadtxt(self._pose_path(vid)).astype(np.float32)
+            camposes.append(c2w[:3, 3])
+            centerdirs.append(get_dtu_raydir(
+                torch.from_numpy(center), torch.from_numpy(self.intrinsic),
+                torch.from_numpy(c2w[:3, :3]), True).numpy())
+        return (np.stack(camposes).astype(np.float32),
+                np.concatenate(centerdirs).astype(np.float32))

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.fused_agg import fused_block1_alpha, matmul, softplus
+from ..ops.fused_agg import fused_block1_alpha, leaky_relu, matmul, softplus
 from ..ops.pe import positional_encoding
 
 
@@ -41,6 +41,8 @@ class AggregatorConfig:
     act_super: int = 1
     compute_dtype: str = "float32"   # "bfloat16": bf16 matmul inputs, f32 sums
     fused_mlp: str = "none"          # "cuda": kernel K2 (ops/fused_agg.py)
+    fused_bwd: str = "cuda"          # backward of K2: "cuda" = kernel K3,
+    #                                  "plain" = autograd of its plain version
 
     @property
     def dist_dim(self) -> int:
@@ -68,7 +70,7 @@ class AggregatorConfig:
 
 def _act(cfg: AggregatorConfig, x):
     if cfg.act_type == "LeakyReLU":
-        return F.leaky_relu(x, 0.01)
+        return leaky_relu(x)
     if cfg.act_type == "ReLU":
         return F.relu(x)
     if cfg.act_type == "ELU":
@@ -222,7 +224,7 @@ def aggregate(params: Dict[str, Any], cfg: AggregatorConfig, *,
             wm.reshape(M, K).to(torch.float32),
             params["block1"], params["alpha_branch"],
             K=K, nf=cfg.num_feat_freqs, df=abs(cfg.dist_xyz_freq),
-            bf16=cfg.compute_dtype == "bfloat16")
+            bf16=cfg.compute_dtype == "bfloat16", bwd=cfg.fused_bwd)
         alpha = al.reshape(B, R, SR, 1)
         feat_agg = fa.reshape(B, R, SR, -1)
     else:

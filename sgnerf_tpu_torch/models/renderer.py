@@ -1,10 +1,17 @@
-"""The eval render: rays -> query -> gather -> aggregate -> volume march.
+"""The render: rays -> query -> gather -> aggregate -> volume march.
 
 Counterpart of `sgnerf_tpu/models/renderer.py` (`render_rays`,
-`gather_and_aggregate`, `_shade_and_march`; reference
+`draw_render_noise`, `gather_and_aggregate`, `_shade_and_march`; reference
 NeuralPointsRayMarching.forward, neural_points_volumetric_model.py:435-668).
 Rays are never compacted: a ray whose samples hit no occupied voxel gets
 sigma 0 everywhere and renders to bg_color.
+
+Training (`is_train=True`) jitters the sample depths with uniforms drawn
+by `draw_render_noise` (or passed in as `noise`, so tests can feed the
+noise JAX drew) and rebuilds the attribute table from the cloud's live
+tensors each call: the gather's transpose is a scatter-add (`index_add_`)
+into that table (the JAX package's `gather_vjp="scatter"`). Only a
+float32 table trains.
 
 `--attr_dedup` is served by the plain row gather. The reference's
 `dedup_tile_gather` is a TPU one-hot-matmul way to gather each tile's
@@ -45,6 +52,7 @@ class RenderConfig:
     knn_mode: str = "exact"          # "fused": kernel K1 (bf16 cache only)
     gather_dtype: str = "float32"    # "bfloat16" attribute table
     compute_depth: int = 0           # emit coarse_depth
+    jitter: float = 0.3              # train-time sample jitter fraction
 
     @property
     def radius_limit(self) -> float:
@@ -60,23 +68,79 @@ def attribute_table(cloud: NeuralPointCloud, gather_dtype: str) -> torch.Tensor:
     return packed.to(torch.bfloat16) if gather_dtype == "bfloat16" else packed
 
 
+def draw_render_noise(generator: torch.Generator, cfg: RenderConfig, B: int,
+                      R: int, is_train: bool = True) -> Dict[str, torch.Tensor]:
+    """Every random tensor the render forward draws, from `generator` (on
+    its device): raygen_u (B,R,D) sample-depth jitter uniforms when
+    training with jitter > 0. Counterpart of the JAX draw_render_noise for
+    the world-coordinate, guidance-free path; the numbers differ from JAX's
+    (the generators differ), so parity tests pass JAX's noise in."""
+    noise: Dict[str, torch.Tensor] = {}
+    if is_train and cfg.jitter > 0:
+        noise["raygen_u"] = torch.rand((B, R, cfg.z_depth_dim),
+                                       generator=generator,
+                                       device=generator.device)
+    return noise
+
+
+class _GatherRows(torch.autograd.Function):
+    """table[idx] whose transpose is a scatter-add, `index_add_` (the JAX
+    package's default gather_vjp="scatter"). Autograd's own transpose of
+    advanced indexing sorts the indices and walks each run of duplicates
+    in one thread; every masked neighbour slot reads row 0, so that run
+    holds most of a training batch's rows and the sort-based transpose
+    took ~0.1 s a step at 1024 rays on the card. index_add_ sums the
+    duplicates with atomics on CUDA (in no fixed order) and in index order
+    on the CPU."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_rows = table.shape[0]
+        flat = idx.reshape(-1)
+        return table.index_select(0, flat).reshape(
+            idx.shape + table.shape[1:])
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        flat = idx.reshape(-1)
+        gt = g.new_zeros((ctx.n_rows,) + g.shape[idx.dim():])
+        gt.index_add_(0, flat, g.reshape((flat.shape[0],) + gt.shape[1:]))
+        return gt, None
+
+
 def render_rays(params: Dict, cloud: NeuralPointCloud, grid: PointGrid,
                 cfg: RenderConfig, *, campos: torch.Tensor,
                 raydir: torch.Tensor, camrotc2w: torch.Tensor, near, far,
                 bg_color: Optional[torch.Tensor] = None,
-                table: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                table: Optional[torch.Tensor] = None,
+                noise: Optional[Dict[str, torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None,
+                is_train: bool = False) -> Dict[str, torch.Tensor]:
     """campos (B,3), raydir (B,R,3), camrotc2w (B,3,3) -> output dict with
     coarse_raycolor (B,R,3) and the per-sample march terms. `table` is the
-    packed attribute table (built from the cloud when not given)."""
+    packed attribute table (eval only; built from the cloud when not given,
+    and always when training). `noise` (or draws from `generator`) jitters
+    the samples when `is_train`."""
+    B, R, _ = raydir.shape
+    if is_train and cfg.gather_dtype != "float32":
+        raise NotImplementedError(
+            f"training through --gather_dtype {cfg.gather_dtype} is not "
+            "ported yet (ROADMAP.md, queue 1 item 17); train with float32")
+    if noise is None and generator is not None:
+        noise = draw_render_noise(generator, cfg, B, R, is_train=is_train)
+    noise = noise or {}
     raypos, _, _, ray_ts = near_far_linear_ray_generation(
-        campos, raydir, cfg.z_depth_dim, near=near, far=far)
+        campos, raydir, cfg.z_depth_dim, near=near, far=far,
+        jitter=cfg.jitter if is_train else 0.0, u=noise.get("raygen_u"))
     # with the two-level compaction on, positions are recomputed from
     # (campos, dir, t) for the selected samples only
     q = query_neighbors(grid, raypos, K=cfg.K,
                         SR=cfg.SR, radius_limit=cfg.radius_limit,
                         knn_mode=cfg.knn_mode, campos=campos, raydir=raydir,
                         tvals=ray_ts)
-    if table is None:
+    if table is None or is_train:
         table = attribute_table(cloud, cfg.gather_dtype)
     return _shade_and_march(params, cloud, cfg, table, q.sample_pidx,
                             q.sample_loc_w, q.ray_mask, campos, raydir,
@@ -92,7 +156,7 @@ def gather_and_aggregate(params, cloud, cfg: RenderConfig, table, sample_pidx,
     agg = cfg.agg
     mask = sample_pidx >= 0
     pid = sample_pidx.clamp(0, cloud.capacity - 1).long()
-    g = table[pid].to(torch.float32)
+    g = _GatherRows.apply(table, pid).to(torch.float32)
     F = cloud.embedding.shape[-1]
     # zero the padding gathers so masked rows stay finite
     sampled_xyz = g[..., 0:3] * mask[..., None]
@@ -141,8 +205,8 @@ def _shade_and_march(params, cloud, cfg: RenderConfig, table, sample_pidx,
             torch.float32).expand(B, R, 3),
         "ray_mask": ray_mask,                               # (B,R) bool
         "ray_valid": ray_valid,
-        "weight": weight,
-        "blend_weight": blend_weight,
+        "weight": weight.detach(),
+        "blend_weight": blend_weight.detach(),
         "conf_coefficient": conf_coefficient,
     }
     if cfg.compute_depth:

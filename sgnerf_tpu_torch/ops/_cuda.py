@@ -35,6 +35,13 @@ _SIGNATURES = {
         "fused_block1_alpha": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
                                _I, _I, _I, _I, _I, _P, _P],
     },
+    "fused_agg_bwd": {
+        # feat, d, w, g, W, WT, b, n_layers, wa, ba, M, K, F, nf, Dd, df, C,
+        # bf16, n_blocks, partial, dfeat, dd, dw, dparams, stream
+        "fused_block1_alpha_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
+                                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                                   _P, _P, _P, _P, _P],
+    },
 }
 
 _libs: dict = {}
@@ -52,26 +59,46 @@ def _nvcc() -> str:
     return path
 
 
-def build(name: str) -> str:
-    """Compile csrc/<name>.cu unless a build of this exact source exists;
-    returns the library path. nvcc's resource report (-Xptxas -v) goes to
-    build/kernels/<lib>.log."""
+def _library_path(name: str):
+    """(source, library) of csrc/<name>.cu; the library name carries a hash
+    of the source and the flags."""
     src = os.path.join(CSRC, f"{name}.cu")
     with open(src, "rb") as f:
         digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
-    so = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
+    return src, os.path.join(BUILD_DIR,
+                             f"lib{name}_{digest.hexdigest()[:12]}.so")
+
+
+def _start_build(name: str):
+    """Start nvcc for csrc/<name>.cu unless a build of this exact source
+    exists. Returns (library path, process or None)."""
+    src, so = _library_path(name)
     if os.path.exists(so):
-        return so
+        return so, None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                          capture_output=True, text=True)
+    return so, subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+
+
+def _finish_build(name: str, so: str, proc) -> str:
+    """Wait for a build started by _start_build; nvcc's resource report
+    (-Xptxas -v) goes to build/kernels/<lib>.log."""
+    if proc is None:
+        return so
+    out, _ = proc.communicate()
     with open(so[:-3] + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
+        f.write(out)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
-    os.replace(tmp, so)        # atomic: a concurrent build never sees a stub
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{out}")
+    os.replace(f"{so}.{os.getpid()}.tmp", so)   # atomic: never a stub
     return so
+
+
+def build(name: str) -> str:
+    """Compile csrc/<name>.cu (once per source); returns the library."""
+    return _finish_build(name, *_start_build(name))
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -88,9 +115,13 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def build_all() -> float:
-    """Build and load every kernel library; returns the seconds it took."""
+    """Build every kernel library, one nvcc per source, all started
+    together, then load them; returns the seconds it took."""
     t0 = time.perf_counter()
-    for name in ("fused_knn", "fused_agg"):
+    started = {name: _start_build(name) for name in _SIGNATURES}
+    for name, (so, proc) in started.items():
+        _finish_build(name, so, proc)
+    for name in _SIGNATURES:
         load(name)
     return time.perf_counter() - t0
 

@@ -1,1 +1,2 @@
-from .options import configs_from_opt  # noqa: F401
+from .options import (BaseOptions, TestOptions, TrainOptions,  # noqa: F401
+                      configs_from_opt, device_from_opt)

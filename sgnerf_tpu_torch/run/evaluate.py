@@ -7,7 +7,7 @@ import os
 
 import numpy as np
 
-from sgnerf_tpu.utils.metrics import lpips, psnr, rmse, ssim
+from ..utils.metrics import lpips, psnr, rmse, ssim
 
 DEFAULT_METRICS = ("psnr", "ssim", "lpips", "vgglpips", "rmse")
 

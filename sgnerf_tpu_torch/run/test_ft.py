@@ -4,7 +4,9 @@
 
 Counterpart of run/test_ft.py (reference run/test_ft.py): resumes the
 checkpoint, renders every `test_num_step`-th test view, prints per-image
-PSNR lines, saves the images and writes scores.txt.
+PSNR lines, saves the images and writes scores.txt. Runs on
+cuda:<--gpu_ids>; `--gpu_ids -1` runs on the CPU with the kernels' plain
+versions.
 """
 from __future__ import annotations
 
@@ -13,12 +15,11 @@ import time
 
 import numpy as np
 
-from sgnerf_tpu.options.options import TestOptions
-from sgnerf_tpu.utils.metrics import psnr
-from sgnerf_tpu.utils.visualizer import Visualizer
-
 from ..data import create_dataset
+from ..options.options import TestOptions
 from ..runtime.scene_model import SceneModel
+from ..utils.metrics import psnr
+from ..utils.visualizer import Visualizer
 from .evaluate import report_metrics
 
 

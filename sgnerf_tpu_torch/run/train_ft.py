@@ -1,0 +1,241 @@
+"""Per-scene fine-tuning on the port.
+
+    python -m sgnerf_tpu_torch.run.train_ft <the flags of run/train_ft.py>
+
+Counterpart of run/train_ft.py (reference run/train_ft.py):
+  1. parse the flags, create the dataset and the SceneModel (on
+     cuda:<--gpu_ids>; `--gpu_ids -1` is the CPU with the kernels' plain
+     versions);
+  2. resume from a checkpoint, or load the scene's init points, voxel-
+     downsample them and initialise the per-point attributes;
+  3. train on random-ray batches from a background item prefetcher; print,
+     prune, save and test on their schedules (`--steps_per_dispatch` G runs
+     G steps between host events);
+  4. final save, reference `.pth` export and test.
+`--profile_dir` writes a torch.profiler trace of steps [profile_start,
+profile_start + profile_steps).
+
+Not ported yet, refused at startup: growing (`--prob_freq` reached before
+`--maximum_step`, ROADMAP item 9), the MVS bootstrap (`--load_points 0`,
+item 14), `--bgmodel plane` (item 13), the semantic branch (item 11).
+"""
+from __future__ import annotations
+
+import copy
+import os
+import queue
+import threading
+import time
+
+import numpy as np
+import torch
+
+from ..data import create_dataset
+from ..options.options import TrainOptions
+from ..runtime.scene_model import SceneModel, batch_to_device
+from ..utils.metrics import psnr
+from ..utils.visualizer import Visualizer
+
+
+class ItemPrefetcher:
+    """Background threads load items (jpeg decode, pixel sampling) while
+    the device trains; the reference relies on DataLoader workers."""
+
+    def __init__(self, dataset, depth: int = 4, n_threads: int = 2):
+        self.q = queue.Queue(maxsize=depth)
+        self.dataset = dataset
+        self.stop = threading.Event()
+
+        def worker(seed):
+            r = np.random.default_rng(seed)
+            while not self.stop.is_set():
+                item = self.dataset.get_item(
+                    int(r.integers(0, len(self.dataset))), rng=r)
+                while not self.stop.is_set():
+                    try:
+                        self.q.put(item, timeout=0.1)
+                        break
+                    except queue.Full:
+                        continue
+
+        self.threads = [threading.Thread(target=worker, args=(1000 + t,),
+                                         daemon=True)
+                        for t in range(max(1, n_threads))]
+        for t in self.threads:
+            t.start()
+
+    def next(self):
+        return self.q.get()
+
+    def close(self):
+        self.stop.set()
+        for t in self.threads:
+            t.join(timeout=10)
+
+
+def check_flags(opt):
+    """Refuse, before any work, what this driver does not port yet."""
+    maximum_step = opt.maximum_step or 100000
+    if opt.prob_freq > 0 and opt.prob_freq <= maximum_step:
+        raise NotImplementedError(
+            "point growing (--prob_freq > 0 within --maximum_step) is not "
+            "ported yet (ROADMAP.md, queue 1 item 9); pass --prob_freq 0")
+    if str(getattr(opt, "bgmodel", "no")).endswith("plane"):
+        raise NotImplementedError(
+            "--bgmodel plane is not ported yet (ROADMAP.md, queue 1 item 13)")
+    if int(opt.predict_semantic) or int(opt.semantic_guidance):
+        raise NotImplementedError(
+            "--predict_semantic/--semantic_guidance are not ported yet "
+            "(ROADMAP.md, queue 1 item 11)")
+    if opt.gather_dtype != "float32":
+        raise NotImplementedError(
+            f"training through --gather_dtype {opt.gather_dtype} is not "
+            "ported yet (ROADMAP.md, queue 1 item 17); train with float32")
+
+
+def run_test(model, dataset, visualizer, total_steps, num_images=None,
+             step_stride=1):
+    """Render test frames, save the images, return the mean PSNR."""
+    ids = list(range(len(dataset)))[::step_stride]
+    if num_images:
+        ids = ids[:num_images]
+    psnrs = []
+    subdir = f"test_{total_steps}"
+    for i in ids:
+        item = dataset.get_item(i, full_img=True)
+        t0 = time.time()
+        col = model.render_image(item)
+        npx = item["pixel_idx"]
+        W = int(npx[:, 0].max() - npx[:, 0].min() + 1)
+        H = len(col) // W
+        img = col[:H * W].reshape(H, W, 3)
+        gt = item["gt_image"][:H * W].reshape(H, W, 3)
+        p = psnr(img, gt)
+        psnrs.append(p)
+        print(f"test img {i} psnr: {p:.3f}  time used: "
+              f"{time.time() - t0:.3f} s", flush=True)
+        visualizer.display_current_results(
+            {"coarse_raycolor": img, "gt_image": gt}, i, subdir=subdir)
+    mean_psnr = float(np.mean(psnrs)) if psnrs else 0.0
+    print(f"test mean psnr over {len(psnrs)} imgs: {mean_psnr:.3f}")
+    return mean_psnr
+
+
+def _test_dataset(opt):
+    topt = copy.copy(opt)
+    topt.split = "test"
+    topt.random_sample = "no_crop"
+    return create_dataset(topt)
+
+
+def main(args=None):
+    opt = TrainOptions().parse(args)
+    opt.split = "train"
+    check_flags(opt)
+    TrainOptions().save(opt)
+    visualizer = Visualizer(opt)
+    dataset = create_dataset(opt)
+
+    model = SceneModel(opt)
+    resume = model.resolve_resume()
+    if resume is not None:
+        model.load_checkpoint(resume)
+    elif opt.load_points < 1:
+        raise NotImplementedError(
+            "the MVS point bootstrap (--load_points 0) is not ported yet "
+            "(ROADMAP.md, queue 1 item 14)")
+    elif opt.load_points == 2:
+        raise NotImplementedError(
+            "the depth-unprojection bootstrap (--load_points 2) is not "
+            "ported yet (ROADMAP.md, queue 1 item 14)")
+    else:
+        xyz, feats, labels = dataset.load_init_points()
+        model.setup_from_points(xyz, feats, labels, dataset=dataset)
+
+    total_steps = int(model.step)
+    maximum_step = opt.maximum_step or 100000
+    rng = np.random.default_rng(1)
+    print(f"training from step {total_steps} to {maximum_step}")
+    t_start = time.time()
+    prefetcher = (ItemPrefetcher(dataset, n_threads=opt.n_threads)
+                  if opt.n_threads > 0 else None)
+    G_max = 1 if opt.profile_dir else max(1, int(opt.steps_per_dispatch))
+    profiler = None
+    test_ds = None
+
+    def next_event(step):
+        nxt = maximum_step
+        for freq in (opt.print_freq, opt.save_iter_freq, opt.save_point_freq,
+                     opt.prune_iter, opt.test_freq):
+            if freq and freq > 0:
+                nxt = min(nxt, (step // freq + 1) * freq)
+        return nxt
+
+    def get_item():
+        if prefetcher is not None:
+            return prefetcher.next()
+        return dataset.get_item(int(rng.integers(0, len(dataset))), rng=rng)
+
+    try:
+        while total_steps < maximum_step:
+            G = min(G_max, next_event(total_steps) - total_steps)
+            if opt.profile_dir and total_steps == opt.profile_start:
+                acts = [torch.profiler.ProfilerActivity.CPU]
+                if model.device.type == "cuda":
+                    acts.append(torch.profiler.ProfilerActivity.CUDA)
+                profiler = torch.profiler.profile(activities=acts)
+                profiler.start()
+            batches = [batch_to_device(get_item(), model.device)
+                       for _ in range(G)]
+            for losses in model.optimize_multi(batches):
+                visualizer.accumulate_losses(losses)
+            total_steps += G
+            if profiler is not None and \
+                    total_steps >= opt.profile_start + opt.profile_steps:
+                profiler.stop()
+                os.makedirs(opt.profile_dir, exist_ok=True)
+                path = os.path.join(opt.profile_dir,
+                                    f"train_ft_{total_steps}.json")
+                profiler.export_chrome_trace(path)
+                profiler = None
+                print(f"profiler trace written to {path}")
+
+            if total_steps % opt.print_freq == 0:
+                visualizer.print_losses(total_steps)
+                visualizer.reset()
+            if opt.prune_iter > 0 and total_steps % opt.prune_iter == 0 \
+                    and total_steps <= opt.prune_max_iter:
+                model.prune_points(opt.prune_thresh)
+            if total_steps % opt.save_iter_freq == 0:
+                model.save_checkpoint(total_steps)
+            if opt.save_point_freq > 0 and \
+                    total_steps % opt.save_point_freq == 0:
+                c = model.cloud
+                act = c.active.cpu().numpy()
+                visualizer.save_neural_points(
+                    total_steps, c.xyz.cpu().numpy()[act],
+                    colors=c.color.detach().cpu().numpy()[act])
+            if opt.test_freq > 0 and total_steps % opt.test_freq == 0:
+                test_ds = test_ds or _test_dataset(opt)
+                mean_psnr = run_test(model, test_ds, visualizer, total_steps,
+                                     num_images=opt.test_num,
+                                     step_stride=opt.test_num_step)
+                if mean_psnr > model.best_psnr:
+                    model.best_psnr = mean_psnr
+                    model.best_iter = total_steps
+                    model.save_checkpoint(total_steps, best=True)
+    finally:
+        if profiler is not None:
+            profiler.stop()
+        if prefetcher is not None:
+            prefetcher.close()
+
+    print(f"training done in {time.time() - t_start:.1f}s; saving final")
+    model.save_checkpoint(total_steps)
+    model.export_reference(total_steps)
+    run_test(model, test_ds or _test_dataset(opt), visualizer, total_steps,
+             num_images=opt.test_num, step_stride=1)
+
+
+if __name__ == "__main__":
+    main()

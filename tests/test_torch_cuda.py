@@ -1,17 +1,19 @@
-"""Kernels K1 and K2 against their plain PyTorch versions on the card.
+"""Kernels K1, K2 and K3 against their plain PyTorch versions on the card.
 
 Marked `cuda`: each test skips where torch.cuda.is_available() is false
 (CUDA kernels have no CPU mode). On a machine with a card:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 (`tests/conftest.py` sets up jax, which this file does not use.)
 The binding comparison at the main path's shapes is chip_smoke.py's
-phase 5; these run the same checks at small shapes, plus the wrappers'
-refusals."""
+phases 5 and 7; these run the same checks at small shapes, plus K3's
+determinism and the wrappers' refusals."""
 import numpy as np
 import pytest
 import torch
 
 from sgnerf_tpu_torch.ops.fused_agg import (fused_block1_alpha,
+                                            fused_block1_alpha_bwd,
+                                            fused_block1_alpha_bwd_plain,
                                             fused_block1_alpha_plain)
 from sgnerf_tpu_torch.ops.fused_knn import (fused_knn_select,
                                             fused_knn_select_plain)
@@ -84,12 +86,70 @@ def test_k2_kernel_matches_plain(dev, bf16, K, n_layers):
     torch.testing.assert_close(al, ral, **tol)
 
 
-def test_k2_refuses_grad(dev):
-    feat, d, w, block1, alpha = _agg_inputs(dev, M=8)
+# K3 tolerance vs its plain version, per output tensor, relative to the
+# largest magnitude of the plain gradient: summation order (f32), flipped
+# bf16 roundings of product inputs (bf16)
+K3_TOL = {False: 2e-3, True: 3e-2}
+
+
+def _flat(grads):
+    dfeat, dd, dw, dblock1, dalpha = grads
+    return [dfeat, dd, dw] + [t for l_ in dblock1 + dalpha
+                              for t in (l_["w"], l_["b"])]
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("M,K,n_layers", [(501, 8, 2), (77, 3, 1),
+                                          (300, 8, 3)])
+def test_k3_kernel_matches_plain(dev, bf16, M, K, n_layers):
+    """Odd M (a ragged last tile), masked rows (w = 0), K not dividing the
+    32-row tile, 1-3 block1 layers."""
+    feat, d, w, block1, alpha = _agg_inputs(dev, M=M, K=K, n_layers=n_layers)
+    w = w * (torch.rand(w.shape, device=dev) < 0.7)
+    C = block1[0]["w"].shape[1]
+    g = torch.randn(M, C + 1, device=dev)
+    n0 = fused_block1_alpha_bwd.launches
+    got = _flat(fused_block1_alpha_bwd(feat, d, w, block1, alpha, g, K=K,
+                                       nf=3, df=5, bf16=bf16))
+    assert fused_block1_alpha_bwd.launches == n0 + 1
+    ref = _flat(fused_block1_alpha_bwd_plain(feat, d, w, block1, alpha, g,
+                                             K=K, nf=3, df=5, bf16=bf16))
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert a.shape == b.shape, i
+        err = float((a - b).abs().max())
+        assert err <= K3_TOL[bf16] * float(b.abs().max()) + 1e-7, (i, err)
+
+
+def test_k3_is_deterministic(dev):
+    feat, d, w, block1, alpha = _agg_inputs(dev, M=2000)
+    g = torch.randn(2000, 257, device=dev)
+    a = _flat(fused_block1_alpha_bwd(feat, d, w, block1, alpha, g, K=8,
+                                     nf=3, df=5, bf16=False))
+    b = _flat(fused_block1_alpha_bwd(feat, d, w, block1, alpha, g, K=8,
+                                     nf=3, df=5, bf16=False))
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_k2_autograd_backward_is_k3(dev):
+    feat, d, w, block1, alpha = _agg_inputs(dev, M=64)
     feat.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="K3"):
-        fused_block1_alpha(feat, d, w, block1, alpha, K=8, nf=3, df=5,
-                           bf16=False)
+    for layer in block1:
+        layer["w"].requires_grad_(True)
+    n2, n3 = fused_block1_alpha.launches, fused_block1_alpha_bwd.launches
+    fa, al = fused_block1_alpha(feat, d, w, block1, alpha, K=8, nf=3, df=5,
+                                bf16=False)
+    ((fa ** 2).sum() + al.sum()).backward()
+    assert fused_block1_alpha.launches == n2 + 1
+    assert fused_block1_alpha_bwd.launches == n3 + 1
+    gf, gw = feat.grad, block1[0]["w"].grad
+    feat.grad = block1[0]["w"].grad = None
+    fa, al = fused_block1_alpha_plain(feat, d, w, block1, alpha, K=8, nf=3,
+                                      df=5, bf16=False)
+    ((fa ** 2).sum() + al.sum()).backward()
+    for a, b in ((gf, feat.grad), (gw, block1[0]["w"].grad)):
+        assert float((a - b).abs().max()) <= 2e-3 * float(b.abs().max())
 
 
 def test_wrappers_refuse_mixed_devices(dev):

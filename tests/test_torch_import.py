@@ -1,11 +1,15 @@
-"""The port imports torch and never jax or triton, and its flag handling
-resolves `auto` from torch.cuda.is_available() and rejects what the slice
-does not cover."""
+"""The port imports torch and never jax, triton, the JAX package or
+bench.py; its flag table is the JAX package's; its device comes from
+--gpu_ids and every `auto` resolves from that device; it rejects what the
+ported slices do not cover."""
+import ast
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
+import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -18,13 +22,16 @@ for n in names:
     importlib.import_module(n)
 assert len(names) >= 20, names
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "triton"))
+             if m.split(".")[0] in ("jax", "jaxlib", "triton", "sgnerf_tpu",
+                                    "bench"))
 assert not bad, bad
 print("ok", len(names))
 """
 
 
 def test_port_imports_without_jax_or_triton():
+    """Every port module imported in a fresh interpreter pulls in no jax,
+    triton, sgnerf_tpu or bench module."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=REPO,
                           env=env, capture_output=True, text=True,
@@ -33,8 +40,40 @@ def test_port_imports_without_jax_or_triton():
     assert proc.stdout.startswith("ok")
 
 
+FORBIDDEN = ("jax", "jaxlib", "triton", "sgnerf_tpu", "bench")
+
+
+def _imported_roots(path):
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
+    roots = _imported_roots(os.path.join(REPO, "chip_smoke.py"))
+    assert "sgnerf_tpu_torch" in roots
+    assert not roots & set(FORBIDDEN), roots & set(FORBIDDEN)
+
+
+def test_flag_table_matches_the_jax_package():
+    """dev_scripts parse unchanged: the same names, types, defaults and
+    nargs, in the same order."""
+    from sgnerf_tpu.options import options as jopts
+    from sgnerf_tpu_torch.options import options as topts
+    assert topts._F == jopts._F
+    a = vars(topts.TrainOptions().parse([]))
+    b = vars(jopts.TrainOptions().parse([]))
+    assert a == b
+
+
 def _opt(extra=()):
-    from sgnerf_tpu.options.options import TestOptions
+    from sgnerf_tpu_torch.options import TestOptions
     return TestOptions().parse([
         "--SR", "24", "--K", "8", "--z_depth_dim", "400",
         "--agg_distance_kernel", "linear", "--agg_intrp_order", "2",
@@ -44,7 +83,7 @@ def _opt(extra=()):
         "--vsize", "0.008", "0.008", "0.008", "--kernel_size", "3", "3", "3",
         "--cache_dtype", "bfloat16", "--gather_dtype", "bfloat16",
         "--num_feat_freqs", "3", "--dist_xyz_freq", "5",
-        "--wcoord_query", "1"] + list(extra))
+        "--wcoord_query", "1", "--gpu_ids", "-1"] + list(extra))
 
 
 def test_configs_match_reference_on_cpu():
@@ -54,23 +93,54 @@ def test_configs_match_reference_on_cpu():
     from sgnerf_tpu_torch.options import configs_from_opt
 
     opt = _opt()
-    cfg, grid_kwargs = configs_from_opt(opt)
-    jcfg, _, jgrid_kwargs = jconfigs(opt)
+    cfg, tcfg, grid_kwargs = configs_from_opt(opt)
+    jcfg, jtcfg, jgrid_kwargs = jconfigs(opt)
     assert grid_kwargs == jgrid_kwargs
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jtcfg)
     assert grid_kwargs["coarse_factor"] == 4          # the auto two-level
-    # auto on the CPU: the plain paths, as the reference's CPU backend
+    # auto on the CPU (--gpu_ids -1): the plain paths, as the reference's
+    # CPU backend
     assert cfg.knn_mode == jcfg.knn_mode == "exact"
-    assert cfg.agg.fused_mlp == "none"
+    assert cfg.agg.fused_mlp == "none" and cfg.agg.fused_bwd == "plain"
     for f in dataclasses.fields(cfg):
         if f.name != "agg":
             assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
     for f in dataclasses.fields(cfg.agg):
-        if f.name != "fused_mlp":
+        if f.name not in ("fused_mlp", "fused_bwd"):
             assert getattr(cfg.agg, f.name) == getattr(jcfg.agg, f.name)
     assert cfg.radius_limit == jcfg.radius_limit
-    forced, _ = configs_from_opt(_opt(["--fused_mlp", "pallas",
-                                       "--knn_mode", "fused"]))
+    forced, _, _ = configs_from_opt(_opt(["--fused_mlp", "pallas",
+                                          "--knn_mode", "fused"]))
     assert forced.agg.fused_mlp == "cuda" and forced.knn_mode == "fused"
+    assert forced.agg.fused_bwd == "cuda"
+    # the card's defaults, resolved from --gpu_ids alone (no probe)
+    card, _, _ = configs_from_opt(_opt(["--gpu_ids", "0"]))
+    assert card.knn_mode == "fused" and card.agg.fused_mlp == "cuda"
+    assert card.agg.fused_bwd == "cuda"
+    xla, _, _ = configs_from_opt(_opt(["--gpu_ids", "0",
+                                       "--fused_bwd", "xla"]))
+    assert xla.agg.fused_mlp == "cuda" and xla.agg.fused_bwd == "plain"
+
+
+def test_scene_model_device_comes_from_gpu_ids():
+    """--gpu_ids -1 (or device="cpu") is the CPU; the default asks for
+    cuda:0 and, without a card, fails at the first CUDA allocation instead
+    of falling back to the CPU."""
+    from sgnerf_tpu_torch.runtime.scene_model import SceneModel
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        ck = ["--checkpoints_dir", d]
+        assert SceneModel(_opt(ck)).device == torch.device("cpu")
+        cuda = SceneModel(_opt(ck + ["--gpu_ids", "0"]))
+        assert cuda.device == torch.device("cuda", 0)
+        assert cuda.cfg.agg.fused_mlp == "cuda"
+        forced = SceneModel(_opt(ck + ["--gpu_ids", "0"]), device="cpu")
+        assert forced.device.type == "cpu"
+        assert forced.cfg.agg.fused_mlp == "none"
+        if not torch.cuda.is_available():
+            xyz = np.random.default_rng(0).normal(size=(50, 3))
+            with pytest.raises((RuntimeError, AssertionError)):
+                cuda.setup_from_points(xyz.astype(np.float32), None, None)
 
 
 @pytest.mark.parametrize("flags", [
@@ -85,6 +155,8 @@ def test_configs_match_reference_on_cpu():
     ["--fused_march", "on"],
     ["--knn_mode", "dedup"],
     ["--knn_mode", "approx"],
+    ["--gather_vjp", "sorted"],
+    ["--gather_round", "stochastic"],
 ])
 def test_flags_outside_the_slice_raise(flags):
     from sgnerf_tpu_torch.options import configs_from_opt

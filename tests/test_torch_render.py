@@ -232,7 +232,7 @@ def test_test_ft_cli_writes_scores(scene, tmp_path):
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
         [sys.executable, "-m", "sgnerf_tpu_torch.run.test_ft"]
-        + _flags(scene, VARIANTS["bf16-fused"]),
+        + _flags(scene, VARIANTS["bf16-fused"]) + ["--gpu_ids", "-1"],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "num.0 psnr:" in proc.stdout and "mean psnr:" in proc.stdout
