@@ -32,7 +32,30 @@ fine-tune train step (the flags of scene0113_00_default.sh). Phases:
   8. the training CLI, sgnerf_tpu_torch.run.train_ft.main, on a synthetic
      ScanNet export written under build/ (640x480 views inside the room,
      the room scan as the resumed checkpoint): 10 steps, then the
-     checkpoints and the test PSNR line.
+     checkpoints and the test PSNR line;
+  9. the phase-3 checkpoint loaded again, then the phase-4 frame with
+     --fused_color on (every counter reset just before): K4 and K1 launch
+     once a chunk, K2 never, and the image agrees with the phase-4 frame;
+ 10. the same with --fused_march on: K5 (and K1) once a chunk, K4 and K2
+     never, the image agrees with the phase-4 frame;
+ 11. the same with RenderConfig(knn_mode="dedup") (tiles of 64 rays, a
+     cap of 160 cache rows a tile): K6 once a chunk, K1 never; the shading
+     points past their tile's cap and the distinct cache rows a tile; on
+     the first chunk K6's ids equal K1's on every point within its tile's
+     cap and are -1 past it; with no point past the cap the image agrees
+     with the phase-4 frame. Then again with tiles of dedup_cap // SR
+     rays, which cannot overflow: the image agrees with the phase-4 frame;
+ 12. K4, K5 (f32 and bf16) and K6 against their plain versions on the
+     inputs captured from the first chunk of phases 9-11, timed with CUDA
+     events; in bf16 K4 also against the plain colour head run on the K2
+     kernel's reduced rows and K5 against the plain march run on K4's
+     outputs, each at a limit below the gap between the kernel's bf16 and
+     f32 modes, and the plain colour head's per-layer bf16 rounding flips
+     between K2's and the plain reduced rows;
+ 13. the train step of phase 6 with --fused_color on: one step's loss and
+     gradients equal phase 6's kernel path (K2 + the colour head outside
+     + K3) from the same state and noise; then 3 steps, each launching K4,
+     K2 (the backward's recompute) and K3 once.
 
 Any failure raises and the script exits non-zero before its last line.
 The last line is {"ok": true, "device": {...}}; the line before it holds
@@ -58,6 +81,16 @@ W_IMG, H_IMG, FOCAL = 640, 480, 580.0
 # 284-term first layer in another order than cuBLAS (f32, no TF32); in bf16
 # a one-ulp difference before the cast can flip an input's bf16 rounding
 K2_TOL = {False: dict(atol=1e-4, rtol=1e-4), True: dict(atol=2e-2, rtol=1e-2)}
+# bf16 mode, K4 vs the plain colour head on the K2 kernel's reduced rows
+# (K4 computes them with K2's tile body, bit for bit), and K5 vs the plain
+# march on K4's outputs (K5 runs K4's colour head on the same rows). Against
+# the plain version (K2_TOL) a one-ulp difference of the K-sum flips a
+# colour input's bf16 rounding, and the flip travels to the logits (1.6e-2
+# on a chunk). Here only the colour layers' summation order is left (K4: a
+# flipped hidden rounding moved 3 of 2004 test logits by <= 5e-4) and the
+# march's exp (K5). Each limit lies below the kernel's bf16-vs-f32 gap
+COLOR_SOUND_TOL = {"K4": dict(atol=2e-3, rtol=0.0),
+                   "K5": dict(atol=1e-6, rtol=0.0)}
 # render of 512 rays, kernel path vs un-fused path, f32 compute
 RENDER_ATOL = 1e-4
 # K3 vs its plain version, per output tensor, relative to the plain
@@ -67,6 +100,7 @@ K3_TOL = {False: 2e-3, True: 3e-2}
 # train step, kernel path vs un-fused path from the same state and noise
 LOSS_RTOL = 1e-5
 TRAIN_STEPS = 8
+FUSED_COLOR_STEPS = 3
 # the card's peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, FP32 FLOP/s
 # outside the tensor cores
 HBM_BPS, F32_FLOPS = 3.35e12, 67e12
@@ -268,15 +302,18 @@ def time_grid_build(model):
     return dt
 
 
-def capture_first_call(module, name, store):
-    """Wrap module.<name> so its first call's arguments land in `store`;
-    the call goes through to the wrapped function unchanged. Returns the
-    original, to be put back."""
+def capture_first_call(module, name, store, on_call=None):
+    """Wrap module.<name> so its first call's arguments land in `store`
+    (and every call's go to `on_call`, when given); the call goes through
+    to the wrapped function unchanged. Returns the original, to be put
+    back."""
     fn = getattr(module, name)
 
     def wrapped(*args, **kw):
         if name not in store:
             store[name] = (args, kw)
+        if on_call is not None:
+            on_call(*args, **kw)
         return fn(*args, **kw)
     setattr(module, name, wrapped)
     return fn
@@ -317,6 +354,25 @@ def capture_first_grad(module, name, store):
     return fn
 
 
+def kernel_wrappers():
+    """The six kernel wrappers, each with its `.launches` count."""
+    from sgnerf_tpu_torch.ops import fused_agg, fused_knn
+    return [fused_knn.fused_knn_select, fused_agg.fused_block1_alpha,
+            fused_agg.fused_block1_alpha_bwd,
+            fused_agg.fused_block1_alpha_color,
+            fused_agg.fused_block1_alpha_color_march,
+            fused_knn.fused_knn_select_tiled]
+
+
+def reset_launches():
+    for fn in kernel_wrappers():
+        fn.launches = 0
+
+
+def read_launches():
+    return {fn.__name__: fn.launches for fn in kernel_wrappers()}
+
+
 def write_scannet_export(root, n_views=6):
     """A ScanNet export of n_views 640x480 posed views inside the room
     (seeded images; the room scan supplies the geometry through the
@@ -352,10 +408,7 @@ def main():
     from sgnerf_tpu_torch.models.renderer import render_rays
     from sgnerf_tpu_torch.ops import _cuda
     from sgnerf_tpu_torch.ops import query as query_mod
-    from sgnerf_tpu_torch.ops.fused_agg import (fused_block1_alpha,
-                                                fused_block1_alpha_plain)
-    from sgnerf_tpu_torch.ops.fused_knn import (fused_knn_select,
-                                                fused_knn_select_plain)
+    from sgnerf_tpu_torch.runtime.scene_model import SceneModel
 
     for d in ("smoke", "smoke_ft", "smoke_scans"):   # this script's outputs
         shutil.rmtree(os.path.join(REPO, "build", d), ignore_errors=True)
@@ -393,13 +446,11 @@ def main():
     agg_fn = capture_first_call(agg_mod, "fused_block1_alpha", captured)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fused_knn_select.launches = 0
-    fused_block1_alpha.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     col = model.render_image(item)
     frame_s = time.perf_counter() - t0
-    launches = {"fused_knn_select": fused_knn_select.launches,
-                "fused_block1_alpha": fused_block1_alpha.launches}
+    launches = read_launches()
     query_mod.fused_knn_select, agg_mod.fused_block1_alpha = knn_fn, agg_fn
     n_rays = W_IMG * H_IMG
     hit_share = float(np.mean(np.any(col != 1.0, axis=-1)))
@@ -407,7 +458,10 @@ def main():
         f"({n_rays / frame_s:.0f} rays/s), launches {launches}, peak "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
         f"rays with neighbours {hit_share:.3f}")
-    assert all(v > 0 for v in launches.values()), launches
+    assert launches["fused_knn_select"] > 0, launches
+    assert launches["fused_block1_alpha"] > 0, launches
+    assert sum(launches.values()) == (launches["fused_knn_select"]
+                                      + launches["fused_block1_alpha"])
     assert col.shape == (n_rays, 3) and np.isfinite(col).all()
     assert hit_share > 0.5, hit_share
     t0 = time.perf_counter()
@@ -438,18 +492,38 @@ def main():
     assert torch.isfinite(a).all() and render_err <= RENDER_ATOL
 
     # ---- 5. K1 and K2 vs their plain versions on one chunk's inputs
-    records = [phase5_k1(captured, launches), phase5_k2(captured, launches)]
-    del model, a, b, kw, captured
+    records = {"K1": phase5_k1(captured, launches),
+               "K2": phase5_k2(captured, launches)}
+    # phase 11 holds K6's ids to K1's on this chunk: K1's inputs wait on
+    # the host, so phases 6-8 run on the card as they did before phase 9
+    k1_args, k1_kw = captured["fused_knn_select"]
+    k1_host = ([t.cpu() if torch.is_tensor(t) else t for t in k1_args],
+               k1_kw)
+    del model, a, b, kw, captured, k1_args
     torch.cuda.empty_cache()
 
     # ---- 6-7. the train step, then K3 vs its plain version
-    records.append(phase6_7_train(item))
+    records["K3"] = phase6_7_train(item)
     torch.cuda.empty_cache()
 
     # ---- 8. the training CLI
     phase8_train_ft()
 
-    log(json.dumps({"kernels": records}))
+    # ---- 9-11. the opt-in render paths on the phase-3 scene, reloaded
+    model = SceneModel(opt)
+    model.load_checkpoint(model.resolve_resume())
+    paths = phase9_11_frames(model, item, col, k1_host)
+    del model, k1_host
+    torch.cuda.empty_cache()
+    # ---- 12. K4-K6 vs their plain versions
+    records.update(phase12_k4_k6(paths))
+    del paths
+    torch.cuda.empty_cache()
+
+    # ---- 13. the train step with the colour head in kernel K4
+    phase13_train_fused_color(item)
+
+    log(json.dumps({"kernels": [records[k] for k in sorted(records)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -529,20 +603,367 @@ def phase5_k2(captured, launches):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
+def phase9_11_frames(model, item, col, k1_host):
+    """Phases 9-11: the phase-4 frame through the three opt-in render
+    paths. Returns, per kernel, the first chunk's captured arguments of the
+    path that carries it and the launch counts of its frame."""
+    import torch
+    from sgnerf_tpu_torch.models import aggregator as agg_mod
+    from sgnerf_tpu_torch.ops import query as query_mod
+
+    base = model.cfg
+    n_chunks = -(-W_IMG * H_IMG // 9216)
+    rep = dataclasses.replace
+    k6_want = {"fused_knn_select_tiled": n_chunks, "fused_knn_select": 0,
+               "fused_block1_alpha": n_chunks}
+    paths = [
+        ("K4", 9, rep(base, agg=rep(base.agg, fused_color=True)), agg_mod,
+         "fused_block1_alpha_color",
+         {"fused_block1_alpha_color": n_chunks,
+          "fused_knn_select": n_chunks, "fused_block1_alpha": 0}),
+        ("K5", 10, rep(base, agg=rep(base.agg, fused_march=True)), agg_mod,
+         "fused_block1_alpha_color_march",
+         {"fused_block1_alpha_color_march": n_chunks,
+          "fused_knn_select": n_chunks, "fused_block1_alpha_color": 0,
+          "fused_block1_alpha": 0}),
+        ("K6", 11, rep(base, knn_mode="dedup"), query_mod,
+         "fused_knn_select_tiled", k6_want),
+        # tiles of dedup_cap // SR rays hold no more shading points than
+        # the cap, so none can overflow and the frame must be phase 4's
+        (None, 11, rep(base, knn_mode="dedup",
+                       dedup_tile=base.dedup_cap // base.SR), query_mod,
+         "fused_knn_select_tiled", k6_want),
+    ]
+    out = {}
+    for key, phase, cfg, module, name, want in paths:
+        store, over = {}, []
+
+        def count_overflow(rows, inv, delta, ok, r2, **kw):
+            over.append(((inv == kw["U"]) & ok).sum())
+        orig = capture_first_call(module, name, store,
+                                  count_overflow if phase == 11 else None)
+        orig_tu = capture_first_call(query_mod, "tile_unique", store)
+        model.cfg = cfg
+        try:
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            img = model.render_image(item)
+            frame_s = time.perf_counter() - t0
+            launches = read_launches()
+        finally:
+            setattr(module, name, orig)
+            query_mod.tile_unique = orig_tu
+            model.cfg = base
+        diff = float(np.abs(img - col).max())
+        tiles = (f" (dedup_tile {cfg.dedup_tile} rays, dedup_cap "
+                 f"{cfg.dedup_cap})" if phase == 11 else "")
+        log(f"phase {phase}: {name} frame {W_IMG}x{H_IMG}{tiles} in "
+            f"{frame_s * 1e3:.1f} ms ({W_IMG * H_IMG / frame_s:.0f} rays/s), "
+            f"launches {launches}, max |diff| to the phase-4 frame {diff:.3e}"
+            f" (tolerance {RENDER_ATOL})")
+        assert all(launches[k] == v for k, v in want.items()), (want,
+                                                                 launches)
+        assert np.isfinite(img).all()
+        n_over = int(sum(over)) if phase == 11 else 0
+        if phase == 11:
+            phase11_ids(store, name, k1_host, n_over)
+        if key is None:
+            assert n_over == 0, n_over
+        if n_over == 0:
+            assert diff <= RENDER_ATOL, (name, diff)
+        if key is not None:
+            out[key] = (store[name], launches)
+    return out
+
+
+def phase11_ids(store, name, k1_host, n_over):
+    """Phase 11 on the first chunk: the distinct cache rows per tile, and
+    K6's ids against K1's on phase 4's inputs of the same chunk (k1_host):
+    equal on every shading point whose row is within its tile's cap, -1 on
+    every other."""
+    import torch
+    from sgnerf_tpu_torch.ops.fused_knn import (fused_knn_select,
+                                                fused_knn_select_tiled,
+                                                tile_unique)
+    args, kw = store[name]
+    inv, ok = args[1], args[3]
+    T, U = kw["T"], kw["U"]
+    # a cap of T rows cannot overflow: it lists every distinct row
+    slot, slot_ok = store["tile_unique"][0][:2]
+    distinct = (tile_unique(slot, slot_ok, T, T)[0] >= 0).sum(dim=1).float()
+    tile_over = (distinct > U).sum()
+    log(f"phase 11: tiles of T={T} points, cap U={U}: shading points past "
+        f"the cap {n_over} in the frame; first chunk: distinct cache rows "
+        f"a tile median {float(distinct.median()):.0f}, max "
+        f"{float(distinct.max()):.0f}; {int(tile_over)} of "
+        f"{distinct.numel()} tiles over the cap")
+    k1_args, k1_kw = k1_host
+    k1_args = [t.to(inv.device) if torch.is_tensor(t) else t
+               for t in k1_args]
+    Mq = k1_args[0].shape[0]
+    with torch.inference_mode():
+        ids6 = fused_knn_select_tiled(*args, **kw)[:Mq]
+        ids1 = fused_knn_select(*k1_args, **k1_kw)
+    within = inv[:Mq] < U
+    lost = (~within & ((ids1 >= 0).any(dim=-1))).sum()
+    log(f"phase 11: first chunk, K6 ids vs K1 ids on the "
+        f"{int(within.sum())} of {Mq} points that hold a row of their "
+        f"tile (inv < U): {int((ids6[within] != ids1[within]).sum())} "
+        f"differ; {int(lost)} points past the cap lose the neighbours K1 "
+        f"finds")
+    assert torch.equal(ids6[within], ids1[within])
+    assert bool((ids6[~within] == -1).all())
+
+
+def color_sound_ref(key, args, kw):
+    """K4: the K2 kernel's (reduced rows, alpha), then the plain colour head
+    -> ((M, 4) [alpha | logits], reduced rows). K5: the K4 kernel's
+    outputs, then the plain march -> ((M/SR, 4), None)."""
+    import torch
+    from sgnerf_tpu_torch.ops import fused_agg
+    feat, d, w, vd = args[:4]
+    block1, alpha, color = args[-3:]
+    common = dict(K=kw["K"], nf=kw["nf"], df=kw["df"], bf16=kw["bf16"])
+    if key == "K4":
+        fa, al = fused_agg.fused_block1_alpha(feat, d, w, block1, alpha,
+                                              **common)
+        hc = fused_agg.color_tail_plain(fa, vd, color, vf=kw["vf"],
+                                        bf16=kw["bf16"])
+        return torch.cat([al, hc], dim=-1), fa
+    al, hc = fused_agg.fused_block1_alpha_color(
+        feat, d, w, vd, block1, alpha, color, vf=kw["vf"], **common)
+    return fused_agg.march_tail_plain(al, hc, args[4], args[5],
+                                      SR=kw["SR"]), None
+
+
+def color_flips(fa_a, fa_b, vd, color, vf):
+    """The plain bf16 colour head on two sets of reduced rows: per layer,
+    how many inputs round to another bf16 value, and the logits' max
+    |diff|."""
+    import torch
+    from sgnerf_tpu_torch.ops.fused_agg import leaky_relu, matmul
+    from sgnerf_tpu_torch.ops.pe import positional_encoding
+    pe = positional_encoding(vd, vf, ori=True)[..., 3:]
+    xs = [torch.cat([fa, pe], dim=-1) for fa in (fa_a, fa_b)]
+    flips = []
+    for i, layer in enumerate(color):
+        ra, rb = (x.to(torch.bfloat16) for x in xs)
+        flips.append(int((ra != rb).sum()))
+        xs = [matmul(x, layer["w"], True) + layer["b"] for x in xs]
+        if i < len(color) - 1:
+            xs = [leaky_relu(x) for x in xs]
+    return flips, float((xs[0] - xs[1]).abs().max())
+
+
+def phase12_sound_bf16(key, args, kwargs, got_bf16, got_f32):
+    """Phase 12, bf16: K4 against the plain colour head on the K2 kernel's
+    reduced rows, K5 against the plain march on K4's outputs; the limit
+    must lie below the gap between the kernel's bf16 and f32 modes, so
+    that a kernel that never rounds fails. For K4, where the bf16
+    difference to the plain version comes from: the flips of the plain
+    colour head's bf16 roundings between K2's and the plain reduced
+    rows."""
+    import torch
+    from sgnerf_tpu_torch.ops.fused_agg import fused_block1_alpha_plain
+    kw = {k: v for k, v in kwargs.items() if k != "bwd"}
+    kw["bf16"] = True
+    tol = COLOR_SOUND_TOL[key]
+    ref, fa_k2 = color_sound_ref(key, args, kw)
+    torch.cuda.synchronize()
+    err = float((got_bf16 - ref).abs().max())
+    gap = float((got_bf16 - got_f32).abs().max())
+    limit = tol["atol"] + tol["rtol"] * float(ref.abs().max())
+    what = ("the plain colour head on K2's reduced rows" if key == "K4"
+            else "the plain march on K4's outputs")
+    log(f"phase 12: {key} bf16 vs {what}: max |diff| {err:.3e} (tolerance "
+        f"{tol}); kernel bf16 vs f32 mode: max |diff| {gap:.3e}")
+    if key == "K4":
+        feat, d, w, vd = args[:4]
+        block1, alpha, color = args[-3:]
+        fa_p, _ = fused_block1_alpha_plain(
+            feat, d, w, block1, alpha, K=kw["K"], nf=kw["nf"], df=kw["df"],
+            bf16=True)
+        flips, dlog = color_flips(fa_k2, fa_p, vd, color, kw["vf"])
+        log(f"phase 12: K4 bf16, the plain colour head on K2's vs the plain "
+            f"reduced rows (max |diff| {float((fa_k2 - fa_p).abs().max()):.3e}"
+            f"): inputs rounding to another bf16 value per colour layer "
+            f"{flips} of {fa_k2.shape[0]} x {[l_['w'].shape[0] for l_ in color]}"
+            f"; logits max |diff| {dlog:.3e}; K4 alpha equals K2's: "
+            f"{torch.equal(got_bf16[:, :1], ref[:, :1])}")
+    assert torch.allclose(got_bf16, ref, **tol), (key, err)
+    assert gap > limit, (key, gap, limit)
+
+
+def phase12_k4_k6(paths):
+    """Phase 12: K4, K5 and K6 against their plain versions on the first
+    chunk's inputs of phases 9-11; returns their records."""
+    import torch
+    from sgnerf_tpu_torch.ops import fused_agg, fused_knn
+
+    records = {}
+    for key, entry in (("K4", "fused_block1_alpha_color"),
+                       ("K5", "fused_block1_alpha_color_march")):
+        (args, kwargs), launches = paths[key]
+        kernel = getattr(fused_agg, entry)
+        plain = getattr(fused_agg, entry + "_plain")
+        plain_kw = {k: v for k, v in kwargs.items() if k != "bwd"}
+
+        def run(fn, **kw):        # K4's (alpha, rgb) as one (M, 4) tensor
+            out = fn(*args, **kw)
+            return torch.cat(out, dim=-1) if isinstance(out, tuple) else out
+        res = {}
+        with torch.inference_mode():
+            for bf16 in (False, True):
+                kw2, kwp = dict(kwargs, bf16=bf16), dict(plain_kw, bf16=bf16)
+                got, ref = run(kernel, **kw2), run(plain, **kwp)
+                torch.cuda.synchronize()
+                err = float((got - ref).abs().max())
+                ok = torch.allclose(got, ref, **K2_TOL[bf16])
+                t_k = cuda_ms(lambda: kernel(*args, **kw2))
+                t_p = cuda_ms(lambda: plain(*args, **kwp))
+                log(f"phase 12: {key} {entry} bf16={bf16} M="
+                    f"{args[0].shape[0]}: max |diff| {err:.3e} (max |ref| "
+                    f"{float(ref.abs().max()):.3f}, tolerance "
+                    f"{K2_TOL[bf16]}); {t_k:.3f} ms vs plain {t_p:.3f} ms")
+                assert ok, (key, bf16, err)
+                res[bf16] = (err, t_k, t_p, got)
+            phase12_sound_bf16(key, args, kwargs, res[True][3], res[False][3])
+            assert torch.equal(run(kernel, **kwargs), run(kernel, **kwargs))
+        err, t_k, t_p, _ = res[bool(kwargs["bf16"])]
+        feat = args[0]
+        block1, alpha, color = args[-3:]
+        M, rows = feat.shape[0], feat.shape[0] * feat.shape[1]
+        C = block1[0]["w"].shape[1]
+        weights = [t for l_ in block1 + alpha + color for t in l_.values()]
+        out_bytes = M * 16 if key == "K4" else M // kwargs["SR"] * 16
+        fma = rows * (mlp_fma_per_row(block1) + C) + M * mlp_fma_per_row(
+            color)
+        bound_ms, bound_by = bound(
+            nbytes(*args[:-3], *weights) + out_bytes, 2.0 * fma, F32_FLOPS)
+        log(f"phase 12: {key} bound {bound_ms:.3f} ms ({bound_by}, f32: "
+            f"{fma / 1e9:.1f} G FMA); reruns bit-identical")
+        records[key] = {
+            "name": entry, "route": "cuda",
+            "source": "sgnerf_tpu_torch/csrc/fused_agg_color.cu",
+            "replaces": ("sgnerf_tpu/ops/fused_agg.py:741" if key == "K4"
+                         else "sgnerf_tpu/ops/fused_agg.py:267"),
+            "launches": launches[entry], "max_abs_err": err, "ms": t_k,
+            "plain_ms": t_p, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+    (args, kwargs), launches = paths["K6"]
+    with torch.inference_mode():
+        ids = fused_knn.fused_knn_select_tiled(*args, **kwargs)
+        ref = fused_knn.fused_knn_select_tiled_plain(*args, **kwargs)
+        torch.cuda.synchronize()
+        assert torch.equal(ids, ref), int((ids != ref).sum())
+        ms = cuda_ms(lambda: fused_knn.fused_knn_select_tiled(*args,
+                                                              **kwargs))
+        plain_ms = cuda_ms(lambda: fused_knn.fused_knn_select_tiled_plain(
+            *args, **kwargs))
+    rows, inv, delta, ok = args[:4]
+    M, C, K = inv.shape[0], kwargs["C"], kwargs["K"]
+    bound_ms, bound_by = bound(nbytes(rows, inv, delta, ok) + M * K * 4,
+                               8.0 * M * C, F32_FLOPS)
+    log(f"phase 12: K6 fused_knn_select_tiled M={M} T={kwargs['T']} "
+        f"U={kwargs['U']} ({rows.shape[0]} distinct-row slots, "
+        f"{nbytes(rows) / 1e6:.1f} MB): ids equal; {ms:.3f} ms vs plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    records["K6"] = {
+        "name": "fused_knn_select_tiled", "route": "cuda",
+        "source": "sgnerf_tpu_torch/csrc/fused_knn.cu",
+        "replaces": "sgnerf_tpu/ops/fused_knn.py:183",
+        "launches": launches["fused_knn_select_tiled"],
+        "max_abs_err": float((ids - ref).abs().max()), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None}
+    return records
+
+
+def train_batch(item, device, R=32 * 32):
+    """R random rays of the frame's camera with seeded target colours."""
+    from sgnerf_tpu_torch.runtime.scene_model import batch_to_device
+    rng = np.random.default_rng(6)
+    pick = rng.choice(len(item["raydir"]), size=R, replace=False)
+    return batch_to_device(dict(
+        item, raydir=item["raydir"][pick],
+        gt_image=rng.uniform(0, 1, (R, 3)).astype(np.float32)), device)
+
+
+def step_diff(model, cfg, ref_cfg, batch, seed=11):
+    """One step's losses and gradients under cfg and under ref_cfg, from the
+    same state and noise: (relative loss difference, worst gradient
+    max|diff| / max|ref|)."""
+    import torch
+    from sgnerf_tpu_torch.models.renderer import draw_render_noise
+    from sgnerf_tpu_torch.models.train import loss_and_grads
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    noise = draw_render_noise(gen, cfg, 1, batch["raydir"].shape[1])
+    lk, gk_net, gk_pts = loss_and_grads(model.state, model.grid, cfg,
+                                        model.tcfg, batch, noise=noise)
+    lp, gp_net, gp_pts = loss_and_grads(model.state, model.grid, ref_cfg,
+                                        model.tcfg, batch, noise=noise)
+    loss_err = abs(float(lk["total"]) - float(lp["total"])) \
+        / abs(float(lp["total"]))
+    grad_err = max(float((a - b).abs().max()) / float(b.abs().max())
+                   for a, b in zip(gk_net + gk_pts, gp_net + gp_pts)
+                   if float(b.abs().max()) > 0)
+    return loss_err, grad_err
+
+
+def phase13_train_fused_color(item):
+    """Phase 13: the phase-6 train step with --fused_color on."""
+    import torch
+    from sgnerf_tpu_torch.options import TrainOptions
+    from sgnerf_tpu_torch.runtime.scene_model import SceneModel
+
+    opt = TrainOptions().parse(TRAIN_FLAGS + [
+        "--fused_color", "on", "--name", "smoke",
+        "--checkpoints_dir", os.path.join(REPO, "build")])
+    model = SceneModel(opt)
+    model.load_checkpoint(model.resolve_resume())
+    cfg = model.cfg
+    assert cfg.agg.fused_color and cfg.agg.fused_bwd == "cuda"
+    batch = train_batch(item, model.device)
+    k2_cfg = dataclasses.replace(
+        cfg, agg=dataclasses.replace(cfg.agg, fused_color=False))
+    loss_err, grad_err = step_diff(model, cfg, k2_cfg, batch)
+    log(f"phase 13: one step, K4 + K2 + K3 vs phase 6's K2 + K3: loss rel "
+        f"diff {loss_err:.3e} (tolerance {LOSS_RTOL}), worst gradient "
+        f"max|diff| / max|ref| {grad_err:.3e} (tolerance {K3_TOL[False]})")
+    assert loss_err <= LOSS_RTOL and grad_err <= K3_TOL[False]
+    torch.cuda.synchronize()
+    reset_launches()
+    losses, step_ms = [], []
+    for _ in range(FUSED_COLOR_STEPS):
+        t0 = time.perf_counter()
+        out = model.optimize(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out["total"]))
+    launches = read_launches()
+    log(f"phase 13: {FUSED_COLOR_STEPS} steps with --fused_color on: losses "
+        f"{[round(v, 6) for v in losses]}, step ms "
+        f"{[round(v, 1) for v in step_ms]}, launches {launches}")
+    n = FUSED_COLOR_STEPS
+    assert np.isfinite(losses).all()
+    assert launches == {"fused_knn_select": 0, "fused_block1_alpha": n,
+                        "fused_block1_alpha_bwd": n,
+                        "fused_block1_alpha_color": n,
+                        "fused_block1_alpha_color_march": 0,
+                        "fused_knn_select_tiled": 0}, launches
+
+
 def phase6_7_train(item):
     """Phase 6 (the train step at full width) and phase 7 (K3 vs plain);
     returns K3's record."""
     import torch
     from sgnerf_tpu_torch.models import aggregator as agg_mod
-    from sgnerf_tpu_torch.models.renderer import draw_render_noise
-    from sgnerf_tpu_torch.models.train import loss_and_grads
     from sgnerf_tpu_torch.options import TrainOptions
-    from sgnerf_tpu_torch.ops.fused_agg import (fused_block1_alpha,
-                                                fused_block1_alpha_bwd,
+    from sgnerf_tpu_torch.ops.fused_agg import (fused_block1_alpha_bwd,
                                                 fused_block1_alpha_bwd_plain)
-    from sgnerf_tpu_torch.ops.fused_knn import fused_knn_select
-    from sgnerf_tpu_torch.runtime.scene_model import (SceneModel,
-                                                      batch_to_device)
+    from sgnerf_tpu_torch.runtime.scene_model import SceneModel
 
     opt = TrainOptions().parse(TRAIN_FLAGS + [
         "--name", "smoke", "--checkpoints_dir", os.path.join(REPO, "build")])
@@ -557,20 +978,14 @@ def phase6_7_train(item):
         f"{time.perf_counter() - t0:.1f} s, cache rows "
         f"{model.grid.nbr_packed.shape[0]}")
 
-    rng = np.random.default_rng(6)
-    R = 32 * 32
-    pick = rng.choice(len(item["raydir"]), size=R, replace=False)
-    train_item = dict(item, raydir=item["raydir"][pick],
-                      gt_image=rng.uniform(0, 1, (R, 3)).astype(np.float32))
-    batch = batch_to_device(train_item, model.device)
+    batch = train_batch(item, model.device)
+    R = batch["raydir"].shape[1]
 
     captured = {}
     agg_fn = capture_first_grad(agg_mod, "fused_block1_alpha", captured)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fused_knn_select.launches = 0
-    fused_block1_alpha.launches = 0
-    fused_block1_alpha_bwd.launches = 0
+    reset_launches()
     losses, step_ms = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -578,9 +993,7 @@ def phase6_7_train(item):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(out["total"]))
-    launches = {"fused_knn_select": fused_knn_select.launches,
-                "fused_block1_alpha": fused_block1_alpha.launches,
-                "fused_block1_alpha_bwd": fused_block1_alpha_bwd.launches}
+    launches = read_launches()
     agg_mod.fused_block1_alpha = agg_fn
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"phase 6: {TRAIN_STEPS} steps of {R} rays at {N_POINTS} points: "
@@ -591,29 +1004,22 @@ def phase6_7_train(item):
     assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
     assert launches == {"fused_knn_select": 0,
                         "fused_block1_alpha": TRAIN_STEPS,
-                        "fused_block1_alpha_bwd": TRAIN_STEPS}, launches
+                        "fused_block1_alpha_bwd": TRAIN_STEPS,
+                        "fused_block1_alpha_color": 0,
+                        "fused_block1_alpha_color_march": 0,
+                        "fused_knn_select_tiled": 0}, launches
 
     profile_step(model, batch)
 
     # the same step through the kernels and through the un-fused path
-    gen = torch.Generator(device=model.device).manual_seed(11)
-    noise = draw_render_noise(gen, cfg, 1, R)
     plain_cfg = dataclasses.replace(
         cfg, agg=dataclasses.replace(cfg.agg, fused_mlp="none"))
-    lk, gk_net, gk_pts = loss_and_grads(model.state, model.grid, cfg,
-                                        model.tcfg, batch, noise=noise)
-    lp, gp_net, gp_pts = loss_and_grads(model.state, model.grid, plain_cfg,
-                                        model.tcfg, batch, noise=noise)
-    loss_err = abs(float(lk["total"]) - float(lp["total"])) \
-        / abs(float(lp["total"]))
-    grad_err = max(float((a - b).abs().max()) / float(b.abs().max())
-                   for a, b in zip(gk_net + gk_pts, gp_net + gp_pts)
-                   if float(b.abs().max()) > 0)
+    loss_err, grad_err = step_diff(model, cfg, plain_cfg, batch)
     log(f"phase 6: one step, kernel path vs un-fused path: loss rel diff "
         f"{loss_err:.3e} (tolerance {LOSS_RTOL}), worst gradient max|diff| "
         f"/ max|plain| {grad_err:.3e} (tolerance {K3_TOL[False]})")
     assert loss_err <= LOSS_RTOL and grad_err <= K3_TOL[False]
-    del model, batch, gk_net, gk_pts, gp_net, gp_pts
+    del model, batch
     torch.cuda.empty_cache()
 
     # ---- 7. K3 vs its plain version on the captured step
@@ -722,7 +1128,7 @@ def phase8_train_ft():
         "--data_root", scans + "/", "--scan", "scene_smoke",
         "--maximum_step", "10", "--save_iter_freq", "10", "--test_num", "1",
         "--test_freq", "0", "--print_freq", "5"]
-    fused_block1_alpha.launches = fused_block1_alpha_bwd.launches = 0
+    reset_launches()
     tee = Tee(sys.stdout)
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(tee):

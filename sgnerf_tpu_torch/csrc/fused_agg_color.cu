@@ -1,0 +1,351 @@
+// K4 and K5: the fused aggregator with its colour head (K4), and with the
+// colour head and the volume march (K5), for the opt-in render paths
+// `--fused_color on` and `--fused_march on`.
+//
+// K4 replaces sgnerf_tpu/ops/fused_agg.py `fused_block1_alpha_color`
+// (`_pallas_forward_color` -> `_kernel_color`); K5 replaces
+// `fused_block1_alpha_color_march` (`_kernel_color_march`). Function, per
+// shading point m (K neighbour rows each):
+//   [fa_m | alpha_m] = K2's reduced row (fused_agg_body.cuh);
+//   x_m  = [fa_m | sin(vd_m PE) | cos(vd_m PE)], the view-direction PE
+//          channel-major (row C + c*vf + f for sin, C + 3*vf + c*vf + f for
+//          cos: ops/pe.py with ori=True, raw directions split off), against
+//          the unpermuted colour_branch[0] weights;
+//   hc_m = the colour MLP on x_m: LeakyReLU_0.01 between layers, raw logits
+//          out (3 of them);
+//   K4 writes (M, 4) [alpha_m | hc_m].
+// K5 goes on along each ray of SR consecutive points (a ray is rows
+// r*SR .. r*SR+SR-1):
+//   rgb = sigmoid(hc) * 1.002 - 0.001;  sigma = alpha * ray_valid;
+//   op = 1 - exp(-sigma * ray_dist);    a = 1 - op + 1e-10;
+//   T_0 = 1, T_s = T_{s-1} a_{s-1} (exclusive, sequential);
+//   writes (M/SR, 4) [sum_s op_s T_s rgb_s | T_{SR-1} a_{SR-1}].
+// bf16 mode rounds every colour-matmul input (the reduced features, the
+// PE values, the hidden activations, the weights) to bf16 and accumulates
+// in f32, as the reference's `_dot_mm`; f32 mode is IEEE f32 FMA (no TF32,
+// no fast math).
+//
+// What bounds them on an H100: arithmetic, as K2. The colour MLP adds
+// (C + 6 vf) x 128 + 2 x 128 x 128 + 128 x 3 = 68,992 FMA a point at the
+// canonical config to K2's ~1.1M (8 neighbour rows), ~6%; the fusion keeps
+// the (M, C+1) reduced rows (and, for K5, every per-sample tensor of the
+// march) out of device memory. Design: K4 is K2's block (64 neighbour rows
+// = 64/K points) followed, on the tile's reduced rows kept in shared
+// memory, by the colour layers as small dense products: the thread
+// c + N g (N = the layer's width) owns column c for rows g, g + 256/N, ...,
+// with the weights staged through K2's 32-row tile. K5 gives each block
+// whole rays (max(1, (64/K) / SR) of them): it walks the rays' points in
+// K2-sized sub-tiles, keeps [alpha | rgb] of every point in shared memory,
+// then one thread marches each ray. This is the simple, right first
+// version on CUDA cores; tensor cores are later work.
+#include "fused_agg_body.cuh"
+
+using namespace sgnerf_agg;
+
+namespace {
+
+// y[t * ldy + n] = act(sum_k x[t * ldx + k] W[k * N + n] + b[n]) for
+// t < rows, n < N <= kThreads; W is row-major (k_in, N) in global memory,
+// staged through `wtile` (kTileK x N floats). bf16 rounds the weights (the
+// caller rounds x) and, with round_out, the outputs. Every thread of the
+// block calls it; it returns with the block synchronised.
+__device__ void dense_rows(const float* x, int ldx, int rows, int k_in,
+                           const float* __restrict__ W,
+                           const float* __restrict__ b, int N, bool act,
+                           bool round_out, int bf16, float* wtile, float* y,
+                           int ldy) {
+  constexpr int R = 8;  // rows per thread and pass
+  const int tid = threadIdx.x;
+  const int G = kThreads / N;  // threads per column
+  const int n = tid % N, g = tid / N;
+  const bool on = g < G;
+  for (int t0 = 0; t0 < rows; t0 += R * G) {
+    float acc[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[i] = 0.0f;
+    for (int k0 = 0; k0 < k_in; k0 += kTileK) {
+      const int kt = min(kTileK, k_in - k0);
+      for (int idx = tid; idx < kt * N; idx += kThreads) {
+        const float v = W[static_cast<size_t>(k0) * N + idx];
+        wtile[idx] = bf16 ? round_bf16(v) : v;
+      }
+      __syncthreads();
+      if (on) {
+        for (int kk = 0; kk < kt; ++kk) {
+          const float wv = wtile[kk * N + n];
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            const int t = t0 + g + i * G;
+            if (t < rows) acc[i] = fmaf(x[t * ldx + k0 + kk], wv, acc[i]);
+          }
+        }
+      }
+      __syncthreads();  // the tile is consumed before it is overwritten
+    }
+    if (on) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int t = t0 + g + i * G;
+        if (t < rows) {
+          float v = acc[i] + b[n];
+          if (act) v = leaky(v);
+          if (round_out) v = round_bf16(v);
+          y[t * ldy + n] = v;
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// The colour head on n reduced rows `red` (row stride C + 1) of the points
+// m0 .. m0+n-1: builds x = [fa | PE(vd)] in `scratch`, runs the n_clayers
+// layers (hidden width Nh, 3 logits out) and writes the logits to
+// logits[t * 3 + j]. scratch holds n * (C + 6 vf + 2 Nh) floats.
+__device__ void color_head(const float* red, int n, const float* __restrict__ vd,
+                           int m0, int C, int vf,
+                           const float* __restrict__ CW,
+                           const float* __restrict__ CB, int n_clayers, int Nh,
+                           int bf16, float* scratch, float* wtile,
+                           float* logits) {
+  const int in0c = C + 6 * vf;
+  float* cx = scratch;                    // n x in0c
+  float* hbuf[2] = {cx + n * in0c, cx + n * in0c + n * Nh};  // n x Nh each
+  for (int idx = threadIdx.x; idx < n * in0c; idx += kThreads) {
+    const int t = idx / in0c, j = idx - t * in0c;
+    float v;
+    if (j < C) {
+      v = red[t * (C + 1) + j];
+    } else {
+      const int q = j - C, cf = q % (3 * vf);
+      const float a = vd[static_cast<size_t>(m0 + t) * 3 + cf / vf] *
+                      static_cast<float>(1 << (cf % vf));
+      v = q < 3 * vf ? sinf(a) : cosf(a);
+    }
+    cx[idx] = bf16 ? round_bf16(v) : v;
+  }
+  __syncthreads();
+  const float* in = cx;
+  int k_in = in0c;
+  const float* Wl = CW;
+  const float* bl = CB;
+  for (int l = 0; l < n_clayers; ++l) {
+    const bool last = l == n_clayers - 1;
+    const int N = last ? 3 : Nh;
+    float* y = last ? logits : hbuf[l & 1];
+    dense_rows(in, k_in, n, k_in, Wl, bl, N, !last, bf16 && !last, bf16,
+               wtile, y, N);
+    Wl += static_cast<size_t>(k_in) * N;
+    bl += N;
+    in = y;
+    k_in = N;
+  }
+}
+
+__device__ __forceinline__ float* wtile_of(float* smem, int in0, int C) {
+  const int lda = in0 > C ? in0 : C;
+  return smem + kRows * lda + kRows * C;
+}
+
+__global__ void __launch_bounds__(kThreads)
+fused_agg_color_kernel(const float* __restrict__ feat,
+                       const float* __restrict__ dist,
+                       const float* __restrict__ wgt,
+                       const float* __restrict__ vd,
+                       const float* __restrict__ W,
+                       const float* __restrict__ Bias, int n_layers,
+                       const float* __restrict__ wa,
+                       const float* __restrict__ ba,
+                       const float* __restrict__ CW,
+                       const float* __restrict__ CB, int n_clayers, int Nh,
+                       int M, int K, int F, int nf, int Dd, int df, int C,
+                       int vf, int bf16, size_t body_floats,
+                       float* __restrict__ out) {
+  extern __shared__ float smem[];
+  const int in0 = F + 2 * F * nf + 2 * Dd * df;
+  const int tm = kRows / K;
+  const int m0 = blockIdx.x * tm;
+  const int n = min(tm, M - m0);
+  float* red = smem + body_floats;        // tm x (C+1): reduced rows
+  float* logits = red + tm * (C + 1);     // tm x 3
+  block1_alpha_tile(feat, dist, wgt, W, Bias, n_layers, wa, ba, K, F, nf, Dd,
+                    df, C, bf16, m0, n, smem, red, C + 1);
+  color_head(red, n, vd, m0, C, vf, CW, CB, n_clayers, Nh, bf16, smem,
+             wtile_of(smem, in0, C), logits);
+  for (int idx = threadIdx.x; idx < n * 4; idx += kThreads) {
+    const int t = idx >> 2, c = idx & 3;
+    out[static_cast<size_t>(m0 + t) * 4 + c] =
+        c == 0 ? red[t * (C + 1) + C] : logits[t * 3 + c - 1];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+fused_agg_march_kernel(const float* __restrict__ feat,
+                       const float* __restrict__ dist,
+                       const float* __restrict__ wgt,
+                       const float* __restrict__ vd,
+                       const float* __restrict__ ray_dist,
+                       const float* __restrict__ ray_valid,
+                       const float* __restrict__ W,
+                       const float* __restrict__ Bias, int n_layers,
+                       const float* __restrict__ wa,
+                       const float* __restrict__ ba,
+                       const float* __restrict__ CW,
+                       const float* __restrict__ CB, int n_clayers, int Nh,
+                       int M, int K, int F, int nf, int Dd, int df, int C,
+                       int vf, int SR, int rays_per_block, int bf16,
+                       size_t body_floats, float* __restrict__ out) {
+  extern __shared__ float smem[];
+  const int in0 = F + 2 * F * nf + 2 * Dd * df;
+  const int tm = kRows / K;
+  const int ray0 = blockIdx.x * rays_per_block;
+  const int rays = min(rays_per_block, M / SR - ray0);
+  const int p0 = ray0 * SR, n_pts = rays * SR;
+  float* red = smem + body_floats;        // tm x (C+1): reduced rows
+  float* logits = red + tm * (C + 1);     // tm x 3
+  float* pts = logits + tm * 3;           // n_pts x 4: [alpha | rgb]
+  float* wtile = wtile_of(smem, in0, C);
+  for (int s0 = 0; s0 < n_pts; s0 += tm) {
+    const int n = min(tm, n_pts - s0);
+    block1_alpha_tile(feat, dist, wgt, W, Bias, n_layers, wa, ba, K, F, nf,
+                      Dd, df, C, bf16, p0 + s0, n, smem, red, C + 1);
+    color_head(red, n, vd, p0 + s0, C, vf, CW, CB, n_clayers, Nh, bf16, smem,
+               wtile, logits);
+    for (int idx = threadIdx.x; idx < n * 4; idx += kThreads) {
+      const int t = idx >> 2, c = idx & 3;
+      float v;
+      if (c == 0) {
+        v = red[t * (C + 1) + C];
+      } else {  // raw2out_color with act_super
+        const float h = logits[t * 3 + c - 1];
+        v = 1.0f / (1.0f + expf(-h)) * 1.002f - 0.001f;
+      }
+      pts[(s0 + t) * 4 + c] = v;
+    }
+    __syncthreads();
+  }
+  // the march: one thread a ray, its SR points in order
+  for (int r = threadIdx.x; r < rays; r += kThreads) {
+    float T = 1.0f, c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;
+    for (int s = 0; s < SR; ++s) {
+      const int i = r * SR + s;
+      const size_t gi = static_cast<size_t>(p0) + i;
+      const float sigma = pts[i * 4] * ray_valid[gi];
+      const float op = 1.0f - expf(-sigma * ray_dist[gi]);
+      const float ws = op * T;
+      c0 += ws * pts[i * 4 + 1];
+      c1 += ws * pts[i * 4 + 2];
+      c2 += ws * pts[i * 4 + 3];
+      T = T * (1.0f - op + 1e-10f);
+    }
+    float* o = out + static_cast<size_t>(ray0 + r) * 4;
+    o[0] = c0;
+    o[1] = c1;
+    o[2] = c2;
+    o[3] = T;
+  }
+}
+
+// Shared-memory floats of a K4/K5 block beyond the body: the reduced rows
+// and the logits of one tile (+ K5's per-point [alpha | rgb]); 0 when a
+// shape does not fit (the colour scratch reuses the body's buffers A/B).
+size_t color_smem_floats(int K, int F, int nf, int Dd, int df, int C, int vf,
+                         int n_clayers, int Nh, int march_pts) {
+  const int in0 = block1_in(F, nf, Dd, df);
+  const int lda = in0 > C ? in0 : C;
+  const int tm = kRows / K;
+  const size_t scratch = static_cast<size_t>(tm) * (C + 6 * vf + 2 * Nh);
+  if (n_clayers < 1 || vf < 1 || vf > 30 || Nh < 3 || Nh > C ||
+      scratch > static_cast<size_t>(kRows) * (lda + C))
+    return 0;
+  const size_t total = body_smem_floats(in0, C) +
+                       static_cast<size_t>(tm) * (C + 4) +
+                       4 * static_cast<size_t>(march_pts);
+  return total * sizeof(float) > kMaxSmem ? 0 : total;
+}
+
+bool agg_args_ok(int M, int K, int F, int nf, int Dd, int df, int C,
+                 int n_layers) {
+  return !(K < 1 || K > kRows / 2 || C < 32 || C > kMaxC || C % 32 != 0 ||
+           n_layers < 1 || M < 0 || F < 1 || nf < 1 || Dd < 1 || df < 1 ||
+           nf > 30 || df > 30);
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* sgnerf_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// K4. feat (M,K,F), dist (M,K,Dd), wgt (M,K), vd (M,3) f32; W/Bias/wa/ba as
+// K2 (fused_agg.cu); CW: the n_clayers colour weights, (C + 6 vf, Nh),
+// (Nh, Nh)..., (Nh, 3) row-major and concatenated (a single layer is
+// (C + 6 vf, 3)); CB their biases, concatenated -> out (M, 4) f32
+// [alpha | raw rgb]. Needs 1 <= K <= 32, C % 32 == 0, C <= 256,
+// 3 <= Nh <= C and a block within 227 KB of shared memory (K >= 2 at the
+// canonical widths). Launches on `stream`; returns cudaGetLastError().
+int fused_block1_alpha_color(const float* feat, const float* dist,
+                             const float* wgt, const float* vd,
+                             const float* W, const float* Bias, int n_layers,
+                             const float* wa, const float* ba,
+                             const float* CW, const float* CB, int n_clayers,
+                             int Nh, int M, int K, int F, int nf, int Dd,
+                             int df, int C, int vf, int bf16, float* out,
+                             cudaStream_t stream) {
+  if (!agg_args_ok(M, K, F, nf, Dd, df, C, n_layers))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t floats =
+      color_smem_floats(K, F, nf, Dd, df, C, vf, n_clayers, Nh, 0);
+  if (floats == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (M == 0) return 0;
+  const size_t smem = floats * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_agg_color_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tm = kRows / K;
+  const int blocks = (M + tm - 1) / tm;
+  fused_agg_color_kernel<<<blocks, kThreads, smem, stream>>>(
+      feat, dist, wgt, vd, W, Bias, n_layers, wa, ba, CW, CB, n_clayers, Nh,
+      M, K, F, nf, Dd, df, C, vf, bf16,
+      body_smem_floats(block1_in(F, nf, Dd, df), C), out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5. As K4, plus ray_dist (M,) and ray_valid (M,) f32, with M = n_rays * SR
+// and each ray's SR points consecutive -> out (M/SR, 4) f32
+// [ray colour | background transmission]. Launches on `stream`; returns
+// cudaGetLastError().
+int fused_block1_alpha_color_march(
+    const float* feat, const float* dist, const float* wgt, const float* vd,
+    const float* ray_dist, const float* ray_valid, const float* W,
+    const float* Bias, int n_layers, const float* wa, const float* ba,
+    const float* CW, const float* CB, int n_clayers, int Nh, int M, int K,
+    int F, int nf, int Dd, int df, int C, int vf, int SR, int bf16,
+    float* out, cudaStream_t stream) {
+  if (!agg_args_ok(M, K, F, nf, Dd, df, C, n_layers) || SR < 1 ||
+      M % SR != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tm = kRows / K;
+  const int rays_per_block = tm / SR > 1 ? tm / SR : 1;
+  const size_t floats = color_smem_floats(K, F, nf, Dd, df, C, vf, n_clayers,
+                                          Nh, rays_per_block * SR);
+  if (floats == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (M == 0) return 0;
+  const size_t smem = floats * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_agg_march_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_rays = M / SR;
+  const int blocks = (n_rays + rays_per_block - 1) / rays_per_block;
+  fused_agg_march_kernel<<<blocks, kThreads, smem, stream>>>(
+      feat, dist, wgt, vd, ray_dist, ray_valid, W, Bias, n_layers, wa, ba, CW,
+      CB, n_clayers, Nh, M, K, F, nf, Dd, df, C, vf, SR, rays_per_block, bf16,
+      body_smem_floats(block1_in(F, nf, Dd, df), C), out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

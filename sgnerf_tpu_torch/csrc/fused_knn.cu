@@ -20,6 +20,18 @@
 // lane-reduction trick of that chip and is not carried over: ids are any
 // int32 here. d2 uses __fmul_rn/__fadd_rn so nvcc cannot contract it into
 // FMAs: the ids then equal the plain PyTorch version's bit for bit.
+//
+// K6: the same select over per-tile distinct rows (`knn_mode="dedup"`).
+// Replaces sgnerf_tpu/ops/fused_knn.py `fused_knn_select_tiled`
+// (`_kernel_tiled`). Rays of neighbouring pixels cross the same voxels, so
+// a tile of T consecutive shading points gathers each distinct cache row
+// once (`tile_unique`, U rows a tile) and point m reads row inv[m] of its
+// tile (inv == U: invalid or overflowed, no neighbours). The TPU kernel
+// redistributes rows with a one-hot matmul and carries ids as 8-bit limbs
+// (exact below 2^24); here a block stages its tile's U rows in shared
+// memory (U = 160, C = 64: 100 KB) and each warp runs K1's select on the
+// staged row, so ids are any int32. Bound by bytes: the tile rows, inv,
+// delta and ok are read once, the ids written once.
 #include <cfloat>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -28,23 +40,20 @@ namespace {
 
 constexpr int kWarpsPerBlock = 8;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kPointsPerTiledBlock = 256;  // K6: points of a tile a block takes
+constexpr size_t kMaxSmem = 232448;        // bytes of shared memory a block may use
 
 __device__ __forceinline__ float bf16_bits(int16_t b) {
   return __uint_as_float(static_cast<uint32_t>(static_cast<uint16_t>(b)) << 16);
 }
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-fused_knn_kernel(const int16_t* __restrict__ rows,
-                 const float* __restrict__ delta,
-                 const uint8_t* __restrict__ slot_ok, float r2, int M, int C,
-                 int K, int32_t* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int m = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (m >= M) return;  // m is uniform across the warp
-  const int16_t* row = rows + static_cast<size_t>(m) * 5 * C;
-  const float px = delta[3 * m], py = delta[3 * m + 1], pz = delta[3 * m + 2];
-  const bool ok = slot_ok[m] != 0;
-
+// One warp selects the K nearest of the C candidates of `row` (a planar
+// cache row in global or shared memory) for the point at delta (px,py,pz)
+// and writes them to out[0..K). ok = false rejects every candidate.
+__device__ __forceinline__ void warp_select(const int16_t* row, float px,
+                                            float py, float pz, bool ok,
+                                            float r2, int C, int K, int lane,
+                                            int32_t* out) {
   float d0 = FLT_MAX, d1 = FLT_MAX;
   int32_t p0 = -1, p1 = -1;
 #pragma unroll
@@ -90,11 +99,59 @@ fused_knn_kernel(const int16_t* __restrict__ rows,
     const int owner = bi & 31;
     const int32_t q0 = __shfl_sync(kFull, p0, owner);
     const int32_t q1 = __shfl_sync(kFull, p1, owner);
-    if (lane == 0)
-      out[static_cast<size_t>(m) * K + r] = bd < FLT_MAX ? (bi < 32 ? q0 : q1) : -1;
+    if (lane == 0) out[r] = bd < FLT_MAX ? (bi < 32 ? q0 : q1) : -1;
     if (lane == owner) {
       if (bi < 32) d0 = FLT_MAX; else d1 = FLT_MAX;
     }
+  }
+}
+
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+fused_knn_kernel(const int16_t* __restrict__ rows,
+                 const float* __restrict__ delta,
+                 const uint8_t* __restrict__ slot_ok, float r2, int M, int C,
+                 int K, int32_t* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int m = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (m >= M) return;  // m is uniform across the warp
+  warp_select(rows + static_cast<size_t>(m) * 5 * C, delta[3 * m],
+              delta[3 * m + 1], delta[3 * m + 2], slot_ok[m] != 0, r2, C, K,
+              lane, out + static_cast<size_t>(m) * K);
+}
+
+// K6: block (tile, part) stages the tile's U distinct rows in shared memory,
+// then its warps take the part's points in turn; point m reads row inv[m]
+// (inv == U: no row, every candidate rejected).
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+fused_knn_tiled_kernel(const int16_t* __restrict__ rows,
+                       const int32_t* __restrict__ inv,
+                       const float* __restrict__ delta,
+                       const uint8_t* __restrict__ slot_ok, float r2, int T,
+                       int U, int C, int K, int pts_per_block,
+                       int32_t* __restrict__ out) {
+  extern __shared__ int4 staged[];
+  int16_t* trows = reinterpret_cast<int16_t*>(staged);
+  const int tile = blockIdx.x;
+  const size_t row_len = static_cast<size_t>(5) * C;
+  const int16_t* src = rows + static_cast<size_t>(tile) * U * row_len;
+  const size_t n16 = static_cast<size_t>(U) * row_len;
+  if (n16 % 8 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0) {
+    // 16-byte copies (C = 64: 640-byte rows)
+    const int4* s4 = reinterpret_cast<const int4*>(src);
+    for (size_t i = threadIdx.x; i < n16 / 8; i += blockDim.x) staged[i] = s4[i];
+  } else {
+    for (size_t i = threadIdx.x; i < n16; i += blockDim.x) trows[i] = src[i];
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int begin = blockIdx.y * pts_per_block;
+  const int end = min(T, begin + pts_per_block);
+  for (int p = begin + (threadIdx.x >> 5); p < end; p += kWarpsPerBlock) {
+    const size_t m = static_cast<size_t>(tile) * T + p;
+    const int v = inv[m];
+    warp_select(trows + static_cast<size_t>(v < U ? v : U - 1) * row_len,
+                delta[3 * m], delta[3 * m + 1], delta[3 * m + 2],
+                slot_ok[m] != 0 && v < U, r2, C, K, lane, out + m * K);
   }
 }
 
@@ -118,6 +175,30 @@ int fused_knn_select(const int16_t* rows, const float* delta,
   const int blocks = (M + kWarpsPerBlock - 1) / kWarpsPerBlock;
   fused_knn_kernel<<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
       rows, delta, slot_ok, r2, M, C, K, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6. rows (nt*U, 5C) int16: tile t's distinct rows at t*U..t*U+U-1;
+// inv (nt*T,) int32 in [0, U] (U: no row), delta (nt*T, 3) f32, slot_ok
+// (nt*T,) uint8 -> out (nt*T, K) int32. C <= 64, 1 <= K <= C, U * 10 C
+// bytes of shared memory within 227 KB. Launches on `stream`; returns
+// cudaGetLastError().
+int fused_knn_select_tiled(const int16_t* rows, const int32_t* inv,
+                           const float* delta, const uint8_t* slot_ok,
+                           float r2, int nt, int T, int U, int C, int K,
+                           int32_t* out, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(U) * 5 * C * sizeof(int16_t);
+  if (C < 1 || C > 64 || K < 1 || K > C || nt < 0 || T < 1 || U < 1 ||
+      smem > kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (nt == 0) return 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_knn_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(nt, (T + kPointsPerTiledBlock - 1) / kPointsPerTiledBlock);
+  fused_knn_tiled_kernel<<<grid, kWarpsPerBlock * 32, smem, stream>>>(
+      rows, inv, delta, slot_ok, r2, T, U, C, K, kPointsPerTiledBlock, out);
   return static_cast<int>(cudaGetLastError());
 }
 

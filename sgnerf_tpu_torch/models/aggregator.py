@@ -18,7 +18,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.fused_agg import fused_block1_alpha, leaky_relu, matmul, softplus
+from ..ops.fused_agg import (fused_block1_alpha, fused_block1_alpha_color,
+                             fused_block1_alpha_color_march, leaky_relu,
+                             matmul, softplus)
 from ..ops.pe import positional_encoding
 
 
@@ -43,6 +45,11 @@ class AggregatorConfig:
     fused_mlp: str = "none"          # "cuda": kernel K2 (ops/fused_agg.py)
     fused_bwd: str = "cuda"          # backward of K2: "cuda" = kernel K3,
     #                                  "plain" = autograd of its plain version
+    fused_color: bool = False        # the colour head inside the fused
+    #                                  kernel (K4; --fused_color on)
+    fused_march: bool = False        # eval renders: the colour head and the
+    #                                  volume march inside the fused kernel
+    #                                  (K5; --fused_march on)
 
     @property
     def dist_dim(self) -> int:
@@ -184,10 +191,13 @@ def aggregate(params: Dict[str, Any], cfg: AggregatorConfig, *,
               sample_loc_w,          # (B,R,SR,3) world
               sample_ray_dirs,       # (B,R,SR,3)
               Rw2c: Optional[torch.Tensor] = None,   # (3,3)
-              vsize=None):
+              vsize=None,
+              march=None):           # {"ray_dist": (B,R,SR)}: K5 (eval)
     """Dense masked aggregation (agg_intrp_order 2). Returns (decoded
     (B,R,SR,4) [alpha | rgb], ray_valid (B,R,SR), weight (B,R,SR,K),
-    conf_coefficient (B,R,SR,K))."""
+    conf_coefficient (B,R,SR,K)). With `march` given, cfg.fused_march set
+    and the fused path on, kernel K5 marches in-kernel and decoded is
+    {"march": (B,R,4) [ray colour | background transmission]}."""
     B, R, SR, K, _ = sampled_embedding.shape
     mask = sample_pnt_mask
     ray_valid = mask.any(dim=-1)
@@ -205,6 +215,7 @@ def aggregate(params: Dict[str, Any], cfg: AggregatorConfig, *,
     viewdirs = sample_ray_dirs
     if Rw2c is not None:
         viewdirs = viewdirs @ Rw2c.T
+    ori_viewdirs = viewdirs
     if cfg.num_viewdir_freqs > 0:
         viewdirs = positional_encoding(viewdirs, cfg.num_viewdir_freqs,
                                        ori=True)[..., 3:]
@@ -215,16 +226,36 @@ def aggregate(params: Dict[str, Any], cfg: AggregatorConfig, *,
     if Rw2c is not None:
         d = torch.cat([d[..., :3] @ Rw2c.T, d[..., 3:]], dim=-1)
 
-    if use_fused(cfg):
+    color = None
+    fused = use_fused(cfg)
+    vf = cfg.num_viewdir_freqs
+    if fused:
         M = B * R * SR
-        wm = w * mask.to(weight.dtype)
-        fa, al = fused_block1_alpha(
-            sampled_embedding.reshape(M, K, -1).to(torch.float32),
-            d.reshape(M, K, -1).to(torch.float32),
-            wm.reshape(M, K).to(torch.float32),
-            params["block1"], params["alpha_branch"],
-            K=K, nf=cfg.num_feat_freqs, df=abs(cfg.dist_xyz_freq),
-            bf16=cfg.compute_dtype == "bfloat16", bwd=cfg.fused_bwd)
+        kw = dict(K=K, nf=cfg.num_feat_freqs, df=abs(cfg.dist_xyz_freq),
+                  bf16=cfg.compute_dtype == "bfloat16")
+        args = (sampled_embedding.reshape(M, K, -1).to(torch.float32),
+                d.reshape(M, K, -1).to(torch.float32),
+                (w * mask.to(weight.dtype)).reshape(M, K).to(torch.float32))
+        vd = ori_viewdirs.reshape(M, 3).to(torch.float32)
+    # the march kernel carries its own colour head, whatever fused_color says
+    if march is not None and cfg.fused_march and fused and vf > 0:
+        out4 = fused_block1_alpha_color_march(
+            *args, vd, march["ray_dist"].reshape(M).to(torch.float32),
+            ray_valid.reshape(M).to(torch.float32), params["block1"],
+            params["alpha_branch"], params["color_branch"], vf=vf, SR=SR,
+            **kw)
+        return ({"march": out4.reshape(B, R, 4)}, ray_valid, weight,
+                conf_coefficient)
+    if fused and vf > 0 and cfg.fused_color:
+        al, rawc = fused_block1_alpha_color(
+            *args, vd, params["block1"], params["alpha_branch"],
+            params["color_branch"], vf=vf, bwd=cfg.fused_bwd, **kw)
+        alpha = al.reshape(B, R, SR, 1)
+        color = raw2out_color(cfg, rawc.reshape(B, R, SR, 3))
+    elif fused:
+        fa, al = fused_block1_alpha(*args, params["block1"],
+                                    params["alpha_branch"], bwd=cfg.fused_bwd,
+                                    **kw)
         alpha = al.reshape(B, R, SR, 1)
         feat_agg = fa.reshape(B, R, SR, -1)
     else:
@@ -241,9 +272,10 @@ def aggregate(params: Dict[str, Any], cfg: AggregatorConfig, *,
         alpha = (alpha_nb * w[..., None]).sum(-2)               # (B,R,SR,1)
         feat_agg = (feat * mask[..., None] * w[..., None]).sum(-2)
 
-    raw_color = _mlp_apply(cfg, params["color_branch"],
-                           torch.cat([feat_agg, viewdirs], dim=-1),
-                           act_last=False)
-    decoded = torch.cat([alpha, raw2out_color(cfg, raw_color)], dim=-1)
+    if color is None:
+        color = raw2out_color(cfg, _mlp_apply(
+            cfg, params["color_branch"], torch.cat([feat_agg, viewdirs], -1),
+            act_last=False))
+    decoded = torch.cat([alpha, color], dim=-1)
     decoded = decoded * ray_valid[..., None].to(decoded.dtype)
     return decoded, ray_valid, weight, conf_coefficient

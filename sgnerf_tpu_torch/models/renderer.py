@@ -49,7 +49,11 @@ class RenderConfig:
     which_blend_func: str = "alpha"
     which_tonemap_func: str = "off"
     raydist_mode_unit: int = 1
-    knn_mode: str = "exact"          # "fused": kernel K1 (bf16 cache only)
+    knn_mode: str = "exact"          # "fused": kernel K1 (bf16 cache only);
+    #                                  "dedup": kernel K6 over per-tile
+    #                                  distinct cache rows (raster rays)
+    dedup_tile: int = 64             # rays per dedup tile (consecutive)
+    dedup_cap: int = 160             # distinct cache rows per tile
     gather_dtype: str = "float32"    # "bfloat16" attribute table
     compute_depth: int = 0           # emit coarse_depth
     jitter: float = 0.3              # train-time sample jitter fraction
@@ -139,19 +143,22 @@ def render_rays(params: Dict, cloud: NeuralPointCloud, grid: PointGrid,
     q = query_neighbors(grid, raypos, K=cfg.K,
                         SR=cfg.SR, radius_limit=cfg.radius_limit,
                         knn_mode=cfg.knn_mode, campos=campos, raydir=raydir,
-                        tvals=ray_ts)
+                        tvals=ray_ts, dedup_tile=cfg.dedup_tile,
+                        dedup_cap=cfg.dedup_cap)
     if table is None or is_train:
         table = attribute_table(cloud, cfg.gather_dtype)
     return _shade_and_march(params, cloud, cfg, table, q.sample_pidx,
                             q.sample_loc_w, q.ray_mask, campos, raydir,
-                            camrotc2w, bg_color)
+                            camrotc2w, bg_color, is_train)
 
 
 def gather_and_aggregate(params, cloud, cfg: RenderConfig, table, sample_pidx,
-                         sample_loc_w, campos, raydir, camrotc2w):
+                         sample_loc_w, campos, raydir, camrotc2w,
+                         fuse_march=False):
     """Neighbour-attribute gather + per-neighbour aggregation. Returns
     (decoded (B,R,SR,4), ray_valid, weight, conf_coefficient, sample_loc
-    (perspective coords))."""
+    (perspective coords)); with `fuse_march` the aggregation marches in
+    kernel K5 and decoded is {"march": (B,R,4)}."""
     B, R, _ = raydir.shape
     agg = cfg.agg
     mask = sample_pidx >= 0
@@ -169,6 +176,12 @@ def gather_and_aggregate(params, cloud, cfg: RenderConfig, table, sample_pidx,
     sample_loc = torch.stack([w2pers(sample_loc_w[b].reshape(-1, 3),
                                      camrotc2w[b], campos[b])
                               for b in range(B)]).reshape(sample_loc_w.shape)
+    march = None
+    if fuse_march:
+        # the march's per-sample distances are known before aggregation
+        march = {"ray_dist": ray_dist_from_z(
+            sample_loc[..., 2], mask.any(dim=-1), cfg.vsize[2],
+            cfg.raydist_mode_unit)}
     decoded, ray_valid, weight, conf_coefficient = aggregate(
         params, agg,
         sampled_embedding=sampled_embedding,
@@ -179,18 +192,40 @@ def gather_and_aggregate(params, cloud, cfg: RenderConfig, table, sample_pidx,
         sample_loc=sample_loc,
         sample_loc_w=sample_loc_w,
         sample_ray_dirs=raydir[:, :, None, :].expand(B, R, cfg.SR, 3),
-        Rw2c=cloud.Rw2c, vsize=cfg.vsize)
+        Rw2c=cloud.Rw2c, vsize=cfg.vsize, march=march)
     return decoded, ray_valid, weight, conf_coefficient, sample_loc
 
 
 def _shade_and_march(params, cloud, cfg: RenderConfig, table, sample_pidx,
                      sample_loc_w, ray_mask, campos, raydir, camrotc2w,
-                     bg_color):
+                     bg_color, is_train=False):
     """Everything downstream of the neighbour query."""
     B, R, _ = raydir.shape
+    # --fused_march: shading and march in kernel K5, for eval renders of the
+    # radiance/alpha/off tail the kernel implements (training needs the
+    # per-sample outputs)
+    fuse_march = (cfg.agg.fused_march and not is_train
+                  and cfg.which_render_func == "radiance"
+                  and cfg.which_blend_func == "alpha"
+                  and cfg.which_tonemap_func == "off"
+                  and cfg.agg.act_super > 0)
     decoded, ray_valid, weight, conf_coefficient, sample_loc = \
         gather_and_aggregate(params, cloud, cfg, table, sample_pidx,
-                             sample_loc_w, campos, raydir, camrotc2w)
+                             sample_loc_w, campos, raydir, camrotc2w,
+                             fuse_march=fuse_march)
+    queried_shading = (~ray_valid.any(dim=-1, keepdim=True)).to(
+        torch.float32).expand(B, R, 3)
+    if isinstance(decoded, dict):                 # K5 marched in-kernel
+        out4 = decoded["march"]                   # (B,R,4) [colour | bgT]
+        color = out4[..., :3]
+        if bg_color is not None:
+            color = color + torch.as_tensor(
+                bg_color, dtype=out4.dtype,
+                device=out4.device).reshape(-1, 1, 3) * out4[..., 3:]
+        return {"coarse_raycolor": color,
+                "coarse_is_background": out4[..., 3:],
+                "queried_shading": queried_shading,
+                "ray_mask": ray_mask, "ray_valid": ray_valid}
     ray_dist = ray_dist_from_z(sample_loc[..., 2], ray_valid, cfg.vsize[2],
                                cfg.raydist_mode_unit)
     (ray_color, _, opacity, acc_transmission, blend_weight,
@@ -201,8 +236,7 @@ def _shade_and_march(params, cloud, cfg: RenderConfig, table, sample_pidx,
         "coarse_raycolor": TONE_MAPS[cfg.which_tonemap_func](ray_color),
         "coarse_point_opacity": opacity,                    # (B,R,SR)
         "coarse_is_background": background_transmission,    # (B,R,1)
-        "queried_shading": (~ray_valid.any(dim=-1, keepdim=True)).to(
-            torch.float32).expand(B, R, 3),
+        "queried_shading": queried_shading,
         "ray_mask": ray_mask,                               # (B,R) bool
         "ray_valid": ray_valid,
         "weight": weight.detach(),

@@ -1,17 +1,19 @@
 """Build and load the port's CUDA kernels: nvcc -> shared library -> ctypes.
 
-Each `csrc/<name>.cu` exposes a plain C interface. It is compiled for
-sm_90a at first use into `<repo>/build/kernels/` (listed in .gitignore),
-under a name that carries a hash of the source and flags, so an edited
-source is rebuilt. No `--use_fast_math`: the aggregator takes sin/cos of
-arguments up to 2^(freqs-1) times the input, where the fast intrinsics
-lose accuracy.
+Each `csrc/<name>.cu` exposes a plain C interface (shared device code
+lives in `csrc/*.cuh`). It is compiled for sm_90a at first use into
+`<repo>/build/kernels/` (listed in .gitignore), under a name that carries
+a hash of the source, the headers it includes and the flags, so an edited
+source or header is rebuilt. No `--use_fast_math`: the aggregator takes
+sin/cos of arguments up to 2^(freqs-1) times the input, where the fast
+intrinsics lose accuracy.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -28,12 +30,29 @@ _SIGNATURES = {
     "fused_knn": {
         # rows, delta, slot_ok, r2, M, C, K, out, stream
         "fused_knn_select": [_P, _P, _P, _F, _I, _I, _I, _P, _P],
+        # rows, inv, delta, slot_ok, r2, nt, T, U, C, K, out, stream
+        "fused_knn_select_tiled": [_P, _P, _P, _P, _F, _I, _I, _I, _I, _I,
+                                   _P, _P],
     },
     "fused_agg": {
         # feat, d, w, W, b, n_layers, wa, ba, M, K, F, nf, Dd, df, C, bf16,
         # out, stream
         "fused_block1_alpha": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
                                _I, _I, _I, _I, _I, _P, _P],
+    },
+    "fused_agg_color": {
+        # feat, d, w, vd, W, b, n_layers, wa, ba, CW, CB, n_clayers, Nh, M,
+        # K, F, nf, Dd, df, C, vf, bf16, out, stream
+        "fused_block1_alpha_color": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
+                                     _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                     _I, _I, _P, _P],
+        # feat, d, w, vd, ray_dist, ray_valid, W, b, n_layers, wa, ba, CW,
+        # CB, n_clayers, Nh, M, K, F, nf, Dd, df, C, vf, SR, bf16, out,
+        # stream
+        "fused_block1_alpha_color_march": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                           _I, _P, _P, _P, _P, _I, _I, _I,
+                                           _I, _I, _I, _I, _I, _I, _I, _I,
+                                           _I, _P, _P],
     },
     "fused_agg_bwd": {
         # feat, d, w, g, W, WT, b, n_layers, wa, ba, M, K, F, nf, Dd, df, C,
@@ -59,12 +78,31 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(src: str) -> list:
+    """src and every csrc header it includes ("..."), transitively."""
+    seen, todo = [], [src]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path, "rb") as f:
+            todo += [os.path.join(CSRC, h.decode())
+                     for h in _INCLUDE.findall(f.read())]
+    return seen
+
+
 def _library_path(name: str):
     """(source, library) of csrc/<name>.cu; the library name carries a hash
-    of the source and the flags."""
+    of the source, the headers it includes and the flags."""
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(src):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return src, os.path.join(BUILD_DIR,
                              f"lib{name}_{digest.hexdigest()[:12]}.so")
 

@@ -1,16 +1,21 @@
-"""K2 and K3: the fused aggregator (PE -> block1 -> alpha -> K-reduction)
-and its backward.
+"""K2-K5: the fused aggregator (PE -> block1 -> alpha -> K-reduction), its
+backward, and its variants with the colour head and the volume march.
 
-Counterpart of `sgnerf_tpu/ops/fused_agg.py: fused_block1_alpha` (forward
-`_pallas_forward`, backward `_pallas_backward`). The CUDA kernels are
-`csrc/fused_agg.cu` (K2) and `csrc/fused_agg_bwd.cu` (K3); their headers
-say what bounds them and how they are laid out. `fused_block1_alpha_plain`
-states the function in PyTorch and `fused_block1_alpha_bwd_plain` its
-gradient (autograd of the plain version). The wrappers run the plain
-versions only for tensors on the CPU; for CUDA tensors they launch the
-kernels or raise. On CUDA `fused_block1_alpha` is a torch.autograd.Function
-whose forward is K2 and whose backward is K3 (bwd="cuda") or the plain
-gradient (bwd="plain", the JAX package's "xla" backward).
+Counterpart of `sgnerf_tpu/ops/fused_agg.py`: `fused_block1_alpha`
+(forward `_pallas_forward`, backward `_pallas_backward`),
+`fused_block1_alpha_color` and `fused_block1_alpha_color_march`. The CUDA
+kernels are `csrc/fused_agg.cu` (K2), `csrc/fused_agg_bwd.cu` (K3) and
+`csrc/fused_agg_color.cu` (K4, K5); their headers say what bounds them and
+how they are laid out. Each `*_plain` function states a kernel's function
+in PyTorch (`*_bwd_plain`: autograd of the plain forward). The wrappers run
+the plain versions only for tensors on the CPU; for CUDA tensors they
+launch the kernels or raise. On CUDA `fused_block1_alpha` is a
+torch.autograd.Function whose forward is K2 and whose backward is K3
+(bwd="cuda") or the plain gradient (bwd="plain", the JAX package's "xla"
+backward); `fused_block1_alpha_color` likewise has K4 forward and, with
+bwd="cuda", the JAX package's "pallas" backward composed of K2, autograd of
+the colour tail and K3 (`fused_block1_alpha_color_bwd`). K5 is eval only
+and has no gradient.
 
 The kernels compute PE in the reference's interleaved layout against the
 unpermuted block1 weights; the TPU kernels' frequency-major layout with
@@ -89,34 +94,110 @@ def fused_block1_alpha_plain(feat, d, w, block1: List[Dict[str, torch.Tensor]],
     return z[:, :C], z[:, C:]
 
 
+def _flat(layers):
+    return [t for layer in layers for t in (layer["w"], layer["b"])]
+
+
+def _layers(flat, counts):
+    """Flat (w, b, w, b, ...) -> one list of {"w","b"} layers per count."""
+    out, i = [], 0
+    for n in counts:
+        out.append([{"w": flat[i + 2 * j], "b": flat[i + 2 * j + 1]}
+                    for j in range(n)])
+        i += 2 * n
+    return out
+
+
+def _vjp(fn, tensors, blocks, grad_outputs):
+    """Gradients of fn(*tensors, *layer lists) for `grad_outputs`, by
+    autograd on detached copies; returns (tensor grads, layer-list grads)."""
+    counts = [len(b) for b in blocks]
+    leaves = [t.detach().requires_grad_(True)
+              for t in list(tensors) + [t for b in blocks for t in _flat(b)]]
+    with torch.enable_grad():
+        outs = fn(*leaves[:len(tensors)],
+                  *_layers(leaves[len(tensors):], counts))
+        grads = torch.autograd.grad(outs, leaves, grad_outputs=grad_outputs)
+    return grads[:len(tensors)], _layers(grads[len(tensors):], counts)
+
+
 def fused_block1_alpha_bwd_plain(feat, d, w, block1, alpha_branch, g, *,
                                  K: int, nf: int, df: int, bf16: bool):
     """Plain K3: the gradient of fused_block1_alpha_plain for the output
     cotangent g (M, C+1) = [gF | gA]. Returns (d_feat (M,K,F), d_d (M,K,Dd),
     d_w (M,K), d_block1 [{"w","b"}...], d_alpha [{"w","b"}])."""
-    leaves = [feat, d, w] + [t for layer in block1 + alpha_branch
-                             for t in (layer["w"], layer["b"])]
-    leaves = [t.detach().requires_grad_(True) for t in leaves]
-    with torch.enable_grad():
-        n1 = 2 * len(block1)
-        b1 = [{"w": leaves[3 + 2 * i], "b": leaves[4 + 2 * i]}
-              for i in range(len(block1))]
-        ab = [{"w": leaves[3 + n1], "b": leaves[4 + n1]}]
-        fa, al = fused_block1_alpha_plain(leaves[0], leaves[1], leaves[2], b1,
-                                          ab, K=K, nf=nf, df=df, bf16=bf16)
-        C = fa.shape[-1]
-        grads = torch.autograd.grad((fa, al), leaves,
-                                    grad_outputs=(g[:, :C], g[:, C:]))
-    return _unflatten_grads(grads, len(block1))
-
-
-def _unflatten_grads(grads, n_layers):
-    dfeat, dd, dw = grads[:3]
-    rest = grads[3:]
-    dblock1 = [{"w": rest[2 * i], "b": rest[2 * i + 1]}
-               for i in range(n_layers)]
-    dalpha = [{"w": rest[2 * n_layers], "b": rest[2 * n_layers + 1]}]
+    C = g.shape[-1] - 1
+    (dfeat, dd, dw), (dblock1, dalpha) = _vjp(
+        lambda *a: fused_block1_alpha_plain(*a, K=K, nf=nf, df=df, bf16=bf16),
+        (feat, d, w), (block1, alpha_branch), (g[:, :C], g[:, C:]))
     return dfeat, dd, dw, dblock1, dalpha
+
+
+def color_tail_plain(fa, vd, color_branch, *, vf: int, bf16: bool):
+    """The colour head on the K-reduced features (the JAX package's
+    `_xla_color_tail`): [fa | PE(vd) without the raw directions] -> MLP,
+    LeakyReLU between layers, raw logits out. fa (M,C), vd (M,3)."""
+    x = torch.cat([fa, positional_encoding(vd, vf, ori=True)[..., 3:]], -1)
+    for i, layer in enumerate(color_branch):
+        x = matmul(x, layer["w"], bf16) + layer["b"]
+        if i < len(color_branch) - 1:
+            x = leaky_relu(x)
+    return x
+
+
+def fused_block1_alpha_color_plain(feat, d, w, vd, block1, alpha_branch,
+                                   color_branch, *, K: int, nf: int, df: int,
+                                   vf: int, bf16: bool):
+    """Plain K4 (the JAX package's `_xla_ref_color`): K2, then the colour
+    head on the reduced features -> (alpha (M,1), raw_color (M,3))."""
+    fa, al = fused_block1_alpha_plain(feat, d, w, block1, alpha_branch, K=K,
+                                      nf=nf, df=df, bf16=bf16)
+    return al, color_tail_plain(fa, vd, color_branch, vf=vf, bf16=bf16)
+
+
+def fused_block1_alpha_color_bwd_plain(feat, d, w, vd, block1, alpha_branch,
+                                       color_branch, g, *, K: int, nf: int,
+                                       df: int, vf: int, bf16: bool):
+    """The gradient of fused_block1_alpha_color_plain for the cotangent g
+    (M, 4) = [g_alpha | g_rgb], by autograd. Returns (d_feat, d_d, d_w, d_vd,
+    d_block1, d_alpha, d_color)."""
+    (dfeat, dd, dw, dvd), (dblock1, dalpha, dcolor) = _vjp(
+        lambda *a: fused_block1_alpha_color_plain(
+            *a, K=K, nf=nf, df=df, vf=vf, bf16=bf16),
+        (feat, d, w, vd), (block1, alpha_branch, color_branch),
+        (g[:, 0:1], g[:, 1:4]))
+    return dfeat, dd, dw, dvd, dblock1, dalpha, dcolor
+
+
+def fused_block1_alpha_color_march_plain(feat, d, w, vd, ray_dist, ray_valid,
+                                         block1, alpha_branch, color_branch,
+                                         *, K: int, nf: int, df: int, vf: int,
+                                         SR: int, bf16: bool):
+    """Plain K5: K4, then raw2out_color with act_super, opacity
+    1 - exp(-alpha * ray_valid * ray_dist), the exclusive transmission as a
+    sequential product over each ray's SR points, and the alpha blend.
+    ray_dist, ray_valid (M,) f32 -> (M/SR, 4) [ray colour | background
+    transmission]."""
+    al, hc = fused_block1_alpha_color_plain(
+        feat, d, w, vd, block1, alpha_branch, color_branch, K=K, nf=nf,
+        df=df, vf=vf, bf16=bf16)
+    return march_tail_plain(al, hc, ray_dist, ray_valid, SR=SR)
+
+
+def march_tail_plain(al, hc, ray_dist, ray_valid, *, SR: int):
+    """K5's march on K4's outputs: alpha (M,1), raw colour logits (M,3),
+    ray_dist, ray_valid (M,) -> (M/SR, 4) [ray colour | background
+    transmission]."""
+    rgb = torch.sigmoid(hc) * (1.0 + 2 * 0.001) - 0.001
+    op = 1.0 - torch.exp(-(al[:, 0] * ray_valid) * ray_dist)
+    a = (1.0 - op + 1e-10).reshape(-1, SR)
+    T = [torch.ones_like(a[:, 0])]
+    for s in range(SR - 1):
+        T.append(T[-1] * a[:, s])
+    T = torch.stack(T, dim=1)
+    ws = op.reshape(-1, SR) * T
+    color = (ws[..., None] * rgb.reshape(-1, SR, 3)).sum(1)
+    return torch.cat([color, T[:, -1:] * a[:, -1:]], dim=-1)
 
 
 def _check(feat, d, w, block1, alpha_branch, K):
@@ -155,15 +236,43 @@ def _check_cuda(ts, feat, d, block1, K, nf, df, what, max_k=64, max_in=None):
     return C, in0
 
 
+def _check_color(feat, vd, block1, color_branch, vf, extra=()):
+    """Shapes and types of K4/K5's extra inputs; returns their tensors and
+    the colour head's hidden width."""
+    M = feat.shape[0]
+    if vd.dtype != torch.float32 or tuple(vd.shape) != (M, 3):
+        raise ValueError(f"vd must be ({M}, 3) float32, got {vd.dtype} "
+                         f"{tuple(vd.shape)}")
+    if vf < 1:
+        raise ValueError("the fused colour head needs PE'd view directions "
+                         f"(vf >= 1), got vf={vf}")
+    C = block1[0]["w"].shape[1]
+    shapes = [tuple(l_["w"].shape) for l_ in color_branch]
+    n = len(shapes)
+    Nh = shapes[0][1] if n > 1 else 3
+    want = ([(C + 6 * vf, Nh)] + [(Nh, Nh)] * (n - 2) + [(Nh, 3)] if n > 1
+            else [(C + 6 * vf, 3)])
+    if shapes != want:
+        raise ValueError(f"color_branch must be {want}, got {shapes}")
+    ts = [vd] + list(extra) + _flat(color_branch)
+    if any(t.dtype != torch.float32 for t in ts):
+        raise ValueError("the fused colour kernels take float32 tensors only")
+    return ts, Nh
+
+
+def _block1_args(block1, alpha_branch):
+    return (torch.cat([l_["w"].reshape(-1) for l_ in block1]),
+            torch.cat([l_["b"].reshape(-1) for l_ in block1]),
+            alpha_branch[0]["w"].reshape(-1).contiguous(),
+            alpha_branch[0]["b"].reshape(-1).contiguous())
+
+
 def _launch_fwd(feat, d, w, block1, alpha_branch, K, nf, df, bf16):
     ts = _check(feat, d, w, block1, alpha_branch, K)
     C, _ = _check_cuda(ts, feat, d, block1, K, nf, df, "fused_block1_alpha")
     M, _, Fd = feat.shape
     Dd = d.shape[-1]
-    Wall = torch.cat([l_["w"].reshape(-1) for l_ in block1])
-    Ball = torch.cat([l_["b"].reshape(-1) for l_ in block1])
-    wa = alpha_branch[0]["w"].reshape(-1).contiguous()
-    ba = alpha_branch[0]["b"].reshape(-1).contiguous()
+    Wall, Ball, wa, ba = _block1_args(block1, alpha_branch)
     feat, d, w = feat.contiguous(), d.contiguous(), w.contiguous()
     out = torch.empty((M, C + 1), dtype=torch.float32, device=feat.device)
     lib = _cuda.load("fused_agg")
@@ -175,6 +284,46 @@ def _launch_fwd(feat, d, w, block1, alpha_branch, K, nf, df, bf16):
             _cuda.stream_of(feat))
     fused_block1_alpha.launches += 1
     _cuda.check(lib, err, "fused_block1_alpha")
+    return out
+
+
+def _launch_color(feat, d, w, vd, block1, alpha_branch, color_branch, K, nf,
+                  df, vf, bf16, march=None):
+    """K4, or K5 when `march` = (ray_dist, ray_valid, SR)."""
+    what = ("fused_block1_alpha_color" if march is None
+            else "fused_block1_alpha_color_march")
+    ts = _check(feat, d, w, block1, alpha_branch, K)
+    cts, Nh = _check_color(feat, vd, block1, color_branch, vf,
+                           () if march is None else march[:2])
+    C, _ = _check_cuda(ts + cts, feat, d, block1, K, nf, df, what, max_k=32)
+    M, _, Fd = feat.shape
+    Dd = d.shape[-1]
+    Wall, Ball, wa, ba = _block1_args(block1, alpha_branch)
+    CW = torch.cat([l_["w"].reshape(-1) for l_ in color_branch])
+    CB = torch.cat([l_["b"].reshape(-1) for l_ in color_branch])
+    feat, d, w, vd = (t.detach().contiguous() for t in (feat, d, w, vd))
+    lib = _cuda.load("fused_agg_color")
+    common = [_cuda.ptr(Wall), _cuda.ptr(Ball), len(block1), _cuda.ptr(wa),
+              _cuda.ptr(ba), _cuda.ptr(CW), _cuda.ptr(CB), len(color_branch),
+              Nh, M, K, Fd, nf, Dd, df, C, vf]
+    with torch.cuda.device(feat.device):
+        if march is None:
+            out = torch.empty((M, 4), dtype=torch.float32, device=feat.device)
+            err = lib.fused_block1_alpha_color(
+                _cuda.ptr(feat), _cuda.ptr(d), _cuda.ptr(w), _cuda.ptr(vd),
+                *common, int(bf16), _cuda.ptr(out), _cuda.stream_of(feat))
+            fused_block1_alpha_color.launches += 1
+        else:
+            ray_dist, ray_valid, SR = march
+            rd, rv = ray_dist.contiguous(), ray_valid.contiguous()
+            out = torch.empty((M // SR, 4), dtype=torch.float32,
+                              device=feat.device)
+            err = lib.fused_block1_alpha_color_march(
+                _cuda.ptr(feat), _cuda.ptr(d), _cuda.ptr(w), _cuda.ptr(vd),
+                _cuda.ptr(rd), _cuda.ptr(rv), *common, SR, int(bf16),
+                _cuda.ptr(out), _cuda.stream_of(feat))
+            fused_block1_alpha_color_march.launches += 1
+    _cuda.check(lib, err, what)
     return out
 
 
@@ -238,7 +387,7 @@ class _FusedBlock1Alpha(torch.autograd.Function):
     @staticmethod
     def forward(ctx, meta, feat, d, w, *weights):
         K, nf, df, bf16, _ = meta
-        block1, alpha_branch = _unflatten_weights(weights)
+        block1, alpha_branch = _layers(weights, [len(weights) // 2 - 1, 1])
         ctx.meta = meta
         ctx.save_for_backward(feat, d, w, *weights)
         return _launch_fwd(feat, d, w, block1, alpha_branch, K, nf, df, bf16)
@@ -247,21 +396,13 @@ class _FusedBlock1Alpha(torch.autograd.Function):
     def backward(ctx, g):
         feat, d, w, *weights = ctx.saved_tensors
         K, nf, df, bf16, bwd = ctx.meta
-        block1, alpha_branch = _unflatten_weights(weights)
+        block1, alpha_branch = _layers(weights, [len(weights) // 2 - 1, 1])
         fn = (fused_block1_alpha_bwd if bwd == "cuda"
               else fused_block1_alpha_bwd_plain)
         dfeat, dd, dw, dblock1, dalpha = fn(
             feat, d, w, block1, alpha_branch, g.contiguous(), K=K, nf=nf,
             df=df, bf16=bf16)
-        return (None, dfeat, dd, dw,
-                *[t for layer in dblock1 + dalpha
-                  for t in (layer["w"], layer["b"])])
-
-
-def _unflatten_weights(weights):
-    n = (len(weights) - 2) // 2
-    block1 = [{"w": weights[2 * i], "b": weights[2 * i + 1]} for i in range(n)]
-    return block1, [{"w": weights[-2], "b": weights[-1]}]
+        return (None, dfeat, dd, dw, *_flat(dblock1 + dalpha))
 
 
 def fused_block1_alpha(feat: torch.Tensor, d: torch.Tensor, w: torch.Tensor,
@@ -279,13 +420,107 @@ def fused_block1_alpha(feat: torch.Tensor, d: torch.Tensor, w: torch.Tensor,
                                         K=K, nf=nf, df=df, bf16=bf16)
     if bwd not in ("cuda", "plain"):
         raise ValueError(f"bwd must be cuda or plain, got {bwd!r}")
-    weights = [t for layer in block1 + alpha_branch
-               for t in (layer["w"], layer["b"])]
     out = _FusedBlock1Alpha.apply((K, nf, df, bf16, bwd), feat, d, w,
-                                  *weights)
+                                  *_flat(block1 + alpha_branch))
     C = block1[0]["w"].shape[1]
     return out[:, :C], out[:, C:]
 
 
+def fused_block1_alpha_color_bwd(feat, d, w, vd, block1, alpha_branch,
+                                 color_branch, g, *, K: int, nf: int, df: int,
+                                 vf: int, bf16: bool):
+    """K4's backward as the JAX package composes it (`_fused_color_bwd`,
+    "pallas"): K2 re-runs the fused forward for the reduced features,
+    autograd differentiates the M-row colour tail, and K3 runs the
+    per-neighbour backward with the tail's feature cotangent (the kernels
+    on CUDA, their plain versions on the CPU). g (M, 4) = [g_alpha | g_rgb].
+    Returns (d_feat, d_d, d_w, d_vd, d_block1, d_alpha, d_color)."""
+    fa, _ = fused_block1_alpha(feat, d, w, block1, alpha_branch, K=K, nf=nf,
+                               df=df, bf16=bf16)
+    (dfa, dvd), (dcolor,) = _vjp(
+        lambda *a: color_tail_plain(*a, vf=vf, bf16=bf16), (fa, vd),
+        (color_branch,), (g[:, 1:4],))
+    dfeat, dd, dw, dblock1, dalpha = fused_block1_alpha_bwd(
+        feat, d, w, block1, alpha_branch,
+        torch.cat([dfa, g[:, 0:1]], dim=-1).contiguous(), K=K, nf=nf, df=df,
+        bf16=bf16)
+    return dfeat, dd, dw, dvd, dblock1, dalpha, dcolor
+
+
+class _FusedBlock1AlphaColor(torch.autograd.Function):
+    """Forward K4; backward K2 + the colour tail + K3 (bwd="cuda") or the
+    plain gradient (bwd="plain")."""
+
+    @staticmethod
+    def forward(ctx, meta, feat, d, w, vd, *weights):
+        K, nf, df, vf, bf16, _, counts = meta
+        block1, alpha_branch, color_branch = _layers(weights, counts)
+        ctx.meta = meta
+        ctx.save_for_backward(feat, d, w, vd, *weights)
+        return _launch_color(feat, d, w, vd, block1, alpha_branch,
+                             color_branch, K, nf, df, vf, bf16)
+
+    @staticmethod
+    def backward(ctx, g):
+        feat, d, w, vd, *weights = ctx.saved_tensors
+        K, nf, df, vf, bf16, bwd, counts = ctx.meta
+        fn = (fused_block1_alpha_color_bwd if bwd == "cuda"
+              else fused_block1_alpha_color_bwd_plain)
+        dfeat, dd, dw, dvd, dblock1, dalpha, dcolor = fn(
+            feat, d, w, vd, *_layers(weights, counts), g.contiguous(), K=K,
+            nf=nf, df=df, vf=vf, bf16=bf16)
+        return (None, dfeat, dd, dw, dvd, *_flat(dblock1 + dalpha + dcolor))
+
+
+def fused_block1_alpha_color(feat, d, w, vd, block1, alpha_branch,
+                             color_branch, *, K: int, nf: int, df: int,
+                             vf: int, bf16: bool, bwd: str = "cuda"):
+    """K4: feat (M,K,F) f32, d (M,K,Dd), w (M,K) weight*conf (0 = masked),
+    vd (M,3) rotated view directions -> (alpha (M,1), raw_color (M,3)
+    pre-raw2out logits). Needs a 1-layer alpha head and vf >= 1.
+    Differentiable; on CUDA the backward is K2 + the colour tail + K3
+    (bwd="cuda") or the plain gradient (bwd="plain").
+    `fused_block1_alpha_color.launches` counts kernel launches."""
+    _check(feat, d, w, block1, alpha_branch, K)
+    _check_color(feat, vd, block1, color_branch, vf)
+    if feat.device.type == "cpu":
+        return fused_block1_alpha_color_plain(
+            feat, d, w, vd, block1, alpha_branch, color_branch, K=K, nf=nf,
+            df=df, vf=vf, bf16=bf16)
+    if bwd not in ("cuda", "plain"):
+        raise ValueError(f"bwd must be cuda or plain, got {bwd!r}")
+    counts = (len(block1), 1, len(color_branch))
+    out = _FusedBlock1AlphaColor.apply(
+        (K, nf, df, vf, bf16, bwd, counts), feat, d, w, vd,
+        *_flat(block1 + alpha_branch + color_branch))
+    return out[:, 0:1], out[:, 1:4]
+
+
+def fused_block1_alpha_color_march(feat, d, w, vd, ray_dist, ray_valid,
+                                   block1, alpha_branch, color_branch, *,
+                                   K: int, nf: int, df: int, vf: int, SR: int,
+                                   bf16: bool):
+    """K5, eval only (no gradient): the inputs of K4 plus ray_dist (M,) and
+    ray_valid (M,) f32, M = n_rays * SR with each ray's SR points consecutive
+    -> (M/SR, 4) [ray colour | background transmission].
+    `fused_block1_alpha_color_march.launches` counts kernel launches."""
+    _check(feat, d, w, block1, alpha_branch, K)
+    M = feat.shape[0]
+    if SR < 1 or M % SR:
+        raise ValueError(f"M = {M} must be a multiple of SR = {SR}")
+    if any(t.dtype != torch.float32 or tuple(t.shape) != (M,)
+           for t in (ray_dist, ray_valid)):
+        raise ValueError(f"ray_dist and ray_valid must be ({M},) float32")
+    _check_color(feat, vd, block1, color_branch, vf, (ray_dist, ray_valid))
+    if feat.device.type == "cpu":
+        return fused_block1_alpha_color_march_plain(
+            feat, d, w, vd, ray_dist, ray_valid, block1, alpha_branch,
+            color_branch, K=K, nf=nf, df=df, vf=vf, SR=SR, bf16=bf16)
+    return _launch_color(feat, d, w, vd, block1, alpha_branch, color_branch,
+                         K, nf, df, vf, bf16, march=(ray_dist, ray_valid, SR))
+
+
 fused_block1_alpha.launches = 0
 fused_block1_alpha_bwd.launches = 0
+fused_block1_alpha_color.launches = 0
+fused_block1_alpha_color_march.launches = 0

@@ -1,10 +1,12 @@
-"""K1: fused KNN select over gathered merged-neighbourhood cache rows.
+"""K1 and K6: fused KNN select over gathered merged-neighbourhood cache
+rows, per shading point (K1) or from per-tile distinct rows (K6).
 
-Counterpart of `sgnerf_tpu/ops/fused_knn.py:fused_knn_select`. The CUDA
-kernel is `csrc/fused_knn.cu` (its header says what bounds it and how it is
-laid out); `fused_knn_select_plain` states the same function in PyTorch.
-The wrapper runs the plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises.
+Counterpart of `sgnerf_tpu/ops/fused_knn.py` `fused_knn_select`,
+`tile_unique` and `fused_knn_select_tiled`. Both kernels are in
+`csrc/fused_knn.cu` (its header says what bounds them and how they are laid
+out); `fused_knn_select_plain` and `fused_knn_select_tiled_plain` state the
+same functions in PyTorch. The wrappers run the plain versions only for
+tensors on the CPU; for CUDA tensors they launch the kernels or raise.
 
 Semantics (the reference's exact cache path): smallest d2 first, ties by
 candidate index, invalid candidates and exhausted rounds -> -1. Ids are
@@ -21,8 +23,10 @@ from . import _cuda
 _BIG = torch.finfo(torch.float32).max
 
 
-def _check(rows, delta, ok, C, K):
-    M = rows.shape[0]
+def _check(rows, delta, ok, C, K, M=None):
+    """Types and shapes of a select's inputs; M points (default: one row
+    each)."""
+    M = rows.shape[0] if M is None else M
     if rows.dtype != torch.int16 or rows.dim() != 2 or rows.shape[1] != 5 * C:
         raise ValueError(f"rows must be (M, 5*C={5 * C}) int16, got "
                          f"{tuple(rows.shape)} {rows.dtype}")
@@ -87,3 +91,88 @@ def fused_knn_select(rows: torch.Tensor, delta: torch.Tensor,
 
 
 fused_knn_select.launches = 0
+
+
+def tile_unique(slot: torch.Tensor, ok: torch.Tensor, T: int, U: int):
+    """Per-tile distinct cache slots (the JAX package's `tile_unique`, bit
+    for bit). slot (M,) int32, ok (M,) bool, M a multiple of T; a tile is T
+    consecutive rows. Returns (uniq (M//T, U) int32: the U smallest distinct
+    valid slots of each tile, -1 padded; inv (M,) int32: each row's index in
+    its tile's uniq, U when the row is invalid or its slot ranks past U)."""
+    M = slot.shape[0]
+    if M % T:
+        raise ValueError(f"M = {M} must be a multiple of T = {T}")
+    nt = M // T
+    big = 2 ** 30
+    s = torch.where(ok, slot.to(torch.int32),
+                    torch.full_like(slot, big, dtype=torch.int32))
+    sv, sp = torch.sort(s.reshape(nt, T), dim=-1, stable=True)
+    first = torch.ones_like(sv, dtype=torch.bool)
+    first[:, 1:] = sv[:, 1:] != sv[:, :-1]
+    rank = torch.cumsum(first.to(torch.int32), dim=-1) - 1
+    ranku = torch.where((sv < big) & (rank < U), rank,
+                        torch.full_like(rank, U)).long()
+    vals = torch.where(ranku < U, sv, torch.full_like(sv, -1))
+    # per-segment max over (tile, rank); the extra rank-U column collects
+    # the invalid rows and is dropped
+    uniq = torch.full((nt, U + 1), -1, dtype=torch.int32, device=slot.device)
+    uniq.scatter_reduce_(1, ranku, vals, reduce="amax")
+    # ranks back in row order: sp is a permutation of each tile's rows
+    inv = torch.empty_like(ranku).scatter_(1, sp, ranku)
+    return uniq[:, :U], inv.reshape(-1).to(torch.int32)
+
+
+def _check_tiled(rows, inv, delta, ok, C, K, T, U):
+    M = inv.shape[0]
+    if inv.dtype != torch.int32 or inv.dim() != 1 or M % T:
+        raise ValueError(f"inv must be (nt*T,) int32 with T = {T}, got "
+                         f"{tuple(inv.shape)} {inv.dtype}")
+    if tuple(rows.shape[:1]) != (M // T * U,):
+        raise ValueError(f"rows must hold U = {U} rows per tile: "
+                         f"{M // T * U}, got {rows.shape[0]}")
+    _check(rows, delta, ok, C, K, M)
+
+
+def fused_knn_select_tiled_plain(rows, inv, delta, ok, radius2, *, C: int,
+                                 K: int, T: int, U: int) -> torch.Tensor:
+    """Plain K6: K1 on row inv[m] of point m's tile (inv == U: no row, every
+    candidate rejected) -> (nt*T, K) int32 ids."""
+    M = inv.shape[0]
+    tile = torch.arange(M, device=inv.device) // T
+    r = tile * U + inv.clamp(max=U - 1).long()
+    return fused_knn_select_plain(rows[r], delta, ok & (inv < U), radius2,
+                                  C=C, K=K)
+
+
+def fused_knn_select_tiled(rows: torch.Tensor, inv: torch.Tensor,
+                           delta: torch.Tensor, ok: torch.Tensor, radius2, *,
+                           C: int, K: int, T: int, U: int) -> torch.Tensor:
+    """K6: (nt*U, 5C) int16 rows, U per tile of T consecutive points (from
+    `tile_unique`), (nt*T,) int32 inv in [0, U], (nt*T, 3) f32 delta,
+    (nt*T,) bool ok, scalar r2 (0 disables) -> (nt*T, K) int32 ids (-1
+    invalid). Equal to K1 on each point's own row wherever its tile did not
+    overflow U. `fused_knn_select_tiled.launches` counts kernel launches."""
+    _check_tiled(rows, inv, delta, ok, C, K, T, U)
+    if rows.device.type == "cpu":
+        return fused_knn_select_tiled_plain(rows, inv, delta, ok, radius2,
+                                            C=C, K=K, T=T, U=U)
+    if rows.device.type != "cuda" or {inv.device, delta.device,
+                                      ok.device} != {rows.device}:
+        raise ValueError("fused_knn_select_tiled: rows, inv, delta and ok "
+                         "must share one CUDA device (or all lie on the CPU)")
+    rows, inv, delta = rows.contiguous(), inv.contiguous(), delta.contiguous()
+    ok = ok.contiguous().view(torch.uint8)
+    M = inv.shape[0]
+    out = torch.empty((M, K), dtype=torch.int32, device=rows.device)
+    lib = _cuda.load("fused_knn")
+    with torch.cuda.device(rows.device):
+        err = lib.fused_knn_select_tiled(
+            _cuda.ptr(rows), _cuda.ptr(inv), _cuda.ptr(delta), _cuda.ptr(ok),
+            ctypes.c_float(float(radius2)), M // T, T, U, C, K,
+            _cuda.ptr(out), _cuda.stream_of(rows))
+    fused_knn_select_tiled.launches += 1
+    _cuda.check(lib, err, "fused_knn_select_tiled")
+    return out
+
+
+fused_knn_select_tiled.launches = 0

@@ -16,7 +16,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .fused_knn import fused_knn_select
+from .fused_knn import (fused_knn_select, fused_knn_select_tiled,
+                        tile_unique)
 from .grid import (PointGrid, clip_coords, in_bounds, neighbor_offsets,
                    take3d, unpack_cache, voxel_coords)
 
@@ -170,10 +171,16 @@ def bucket_candidates(grid: PointGrid, sample_loc_w: torch.Tensor,
 
 def query_neighbors(grid: PointGrid, raypos: torch.Tensor, K: int, SR: int,
                     radius_limit: float, knn_mode: str = "exact",
-                    campos=None, raydir=None, tvals=None) -> QueryResult:
+                    campos=None, raydir=None, tvals=None,
+                    dedup_tile: int = 64, dedup_cap: int = 160) -> QueryResult:
     """Sample masking -> SR compaction -> KNN. raypos (B,R,D,3); radius
     0 disables the radius test. knn_mode "fused" (bf16 cache) runs kernel
-    K1 on the gathered cache rows; "exact" is the XLA-path statement."""
+    K1 on the gathered cache rows; "dedup" (bf16 cache, raster rays) gathers
+    each distinct cache row once per tile of `dedup_tile` consecutive rays
+    (at most `dedup_cap` rows a tile) and runs kernel K6 on them: the same
+    ids as "fused" wherever a tile holds no more than dedup_cap distinct
+    rows, no neighbours for the shading points past the cap; "exact" is
+    the XLA-path statement."""
     spec = grid.spec
     B, R, D, _ = raypos.shape
     sample_loc_w, smask = mask_and_compact_samples(
@@ -187,11 +194,18 @@ def query_neighbors(grid: PointGrid, raypos: torch.Tensor, K: int, SR: int,
         cc = clip_coords(c, spec.vdim)
         slot = take3d(grid.dil_slot, cc, spec.vdim)
         slot_ok = in_bounds(c, spec) & (slot >= 0) & smask
-        max_d = grid.nbr_packed.shape[0]
-        rows = grid.nbr_packed[slot.clamp(0, max_d - 1).long()]
         dev = raypos.device
         center = ((cc.to(torch.float32) + 0.5) * spec.vsize_t(dev)
                   + spec.min_corner_t(dev))
+        if knn_mode == "dedup" and spec.cache_dtype == "bfloat16":
+            sample_pidx = _dedup_select(
+                grid, slot, slot_ok, (sample_loc_w - center), r2, K, SR,
+                dedup_tile * SR, dedup_cap)
+            return QueryResult(
+                sample_pidx, sample_loc_w, smask,
+                (sample_pidx.reshape(B, R, -1) >= 0).any(dim=-1))
+        max_d = grid.nbr_packed.shape[0]
+        rows = grid.nbr_packed[slot.clamp(0, max_d - 1).long()]
         if knn_mode == "fused" and spec.cache_dtype == "bfloat16":
             Mq = B * R * SR
             sel = fused_knn_select(
@@ -220,3 +234,22 @@ def query_neighbors(grid: PointGrid, raypos: torch.Tensor, K: int, SR: int,
     sample_pidx = torch.where(top_d2 < big, sel, torch.full_like(sel, -1))
     return QueryResult(sample_pidx.to(torch.int32), sample_loc_w, smask,
                        (sample_pidx.reshape(B, R, -1) >= 0).any(dim=-1))
+
+
+def _dedup_select(grid: PointGrid, slot, slot_ok, delta, r2, K: int, SR: int,
+                  T: int, U: int) -> torch.Tensor:
+    """The tile-dedup select: the shading points padded to a multiple of T,
+    each tile's distinct slots (`tile_unique`), one cache-row gather per
+    distinct slot, then K6. Returns (B,R,SR,K) int32 ids."""
+    B, R = slot.shape[:2]
+    Mq = B * R * SR
+    pad = (-Mq) % T
+    slot_f = torch.nn.functional.pad(slot.reshape(Mq), (0, pad), value=-1)
+    ok_f = torch.nn.functional.pad(slot_ok.reshape(Mq), (0, pad))
+    delta_f = torch.nn.functional.pad(delta.reshape(Mq, 3), (0, 0, 0, pad))
+    uniq, inv = tile_unique(slot_f, ok_f, T, U)
+    max_d = grid.nbr_packed.shape[0]
+    rows = grid.nbr_packed[uniq.clamp(0, max_d - 1).reshape(-1).long()]
+    sel = fused_knn_select_tiled(rows, inv, delta_f, ok_f, r2,
+                                 C=rows.shape[-1] // 5, K=K, T=T, U=U)
+    return sel[:Mq].reshape(B, R, SR, K)

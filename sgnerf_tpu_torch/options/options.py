@@ -11,9 +11,12 @@ the JAX package's table. Unknown flags are warned about and ignored.
 `--gpu_ids` (Point-NeRF/pix2pix meaning: -1 is the CPU, otherwise
 `cuda:<first id>`), and every `auto` resolves from that device, never from
 what the machine happens to have: on CUDA the kernels run (fused KNN select
-with a bf16 cache, fused aggregator forward and backward), on the CPU their
-plain PyTorch versions. Flags outside the ported slices raise
-NotImplementedError naming the ROADMAP item that ports them.
+with a bf16 cache, fused aggregator forward and backward; `--fused_color
+on` and `--fused_march on` opt into K4 and K5 as in the JAX package), on
+the CPU their plain PyTorch versions. `knn_mode="dedup"` (K6) is reached
+through `RenderConfig` only, as in the JAX package: the CLI refuses it.
+Flags outside the ported slices raise NotImplementedError naming the
+ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -266,12 +269,6 @@ def _check_slice(opt):
         _unsupported("--scene_shards", "item 19")
     if int(getattr(opt, "ray_shards", 0) or 0) not in (0, 1):
         _unsupported("--ray_shards", "item 18")
-    if getattr(opt, "fused_color", "auto") == "on":
-        _unsupported("--fused_color on (kernel K4)", "queue 2")
-    if getattr(opt, "fused_march", "auto") == "on":
-        _unsupported("--fused_march on (kernel K5)", "queue 2")
-    if getattr(opt, "knn_mode", "auto") == "dedup":
-        _unsupported("--knn_mode dedup (kernel K6)", "queue 2")
     if getattr(opt, "knn_mode", "auto") == "approx":
         _unsupported("--knn_mode approx", "item 17")
     if opt.gather_dtype == "int8":
@@ -330,13 +327,15 @@ def configs_from_opt(opt, device=None):
     if fb not in ("auto", "pallas", "xla"):
         raise ValueError(f"--fused_bwd must be auto/pallas/xla, got {fb!r}")
     knn = getattr(opt, "knn_mode", "auto")
-    if knn not in ("auto", "exact", "approx", "fused", "dedup"):
+    if knn not in ("auto", "exact", "approx", "fused"):
         raise ValueError(
             f"--knn_mode must be auto/exact/approx/fused, got {knn!r}")
-    for flag in ("fused_color", "fused_march"):
-        v = getattr(opt, flag, "auto")
-        if v not in ("auto", "on", "off"):
-            raise ValueError(f"--{flag} must be auto/on/off, got {v!r}")
+    fc = getattr(opt, "fused_color", "auto")
+    if fc not in ("auto", "on", "off"):
+        raise ValueError(f"--fused_color must be auto/on/off, got {fc!r}")
+    fm = getattr(opt, "fused_march", "auto")
+    if fm not in ("auto", "on", "off"):
+        raise ValueError(f"--fused_march must be auto/on/off, got {fm!r}")
     _check_slice(opt)
 
     cuda = torch.device(device if device is not None
@@ -369,6 +368,10 @@ def configs_from_opt(opt, device=None):
         compute_dtype=opt.compute_dtype,
         fused_mlp=fused_mlp,
         fused_bwd=fused_bwd,
+        # opt-in, as in the JAX package: K4 (colour head in the kernel) and
+        # K5 (colour head and march in the kernel, eval renders)
+        fused_color=(fc == "on"),
+        fused_march=(fm == "on"),
     )
     cfg = RenderConfig(
         agg=agg,

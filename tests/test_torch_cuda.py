@@ -1,22 +1,27 @@
-"""Kernels K1, K2 and K3 against their plain PyTorch versions on the card.
+"""Kernels K1-K6 against their plain PyTorch versions on the card.
 
 Marked `cuda`: each test skips where torch.cuda.is_available() is false
 (CUDA kernels have no CPU mode). On a machine with a card:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 (`tests/conftest.py` sets up jax, which this file does not use.)
 The binding comparison at the main path's shapes is chip_smoke.py's
-phases 5 and 7; these run the same checks at small shapes, plus K3's
+phases 5, 7 and 12; these run the same checks at small shapes (odd M,
+masked rows, K and SR that do not divide the kernels' tiles), plus
 determinism and the wrappers' refusals."""
 import numpy as np
 import pytest
 import torch
 
-from sgnerf_tpu_torch.ops.fused_agg import (fused_block1_alpha,
-                                            fused_block1_alpha_bwd,
-                                            fused_block1_alpha_bwd_plain,
-                                            fused_block1_alpha_plain)
+from sgnerf_tpu_torch.ops.fused_agg import (
+    fused_block1_alpha, fused_block1_alpha_bwd, fused_block1_alpha_bwd_plain,
+    fused_block1_alpha_color, fused_block1_alpha_color_march,
+    fused_block1_alpha_color_march_plain, fused_block1_alpha_color_plain,
+    fused_block1_alpha_plain, color_tail_plain, march_tail_plain)
 from sgnerf_tpu_torch.ops.fused_knn import (fused_knn_select,
-                                            fused_knn_select_plain)
+                                            fused_knn_select_plain,
+                                            fused_knn_select_tiled,
+                                            fused_knn_select_tiled_plain,
+                                            tile_unique)
 
 pytestmark = pytest.mark.cuda
 
@@ -156,3 +161,169 @@ def test_wrappers_refuse_mixed_devices(dev):
     rows, delta, ok = _knn_inputs(dev)
     with pytest.raises(ValueError):
         fused_knn_select(rows, delta.cpu(), ok, 0.0, C=64, K=8)
+
+
+# K2's tolerances (chip_smoke.py K2_TOL): summation order in f32; a flipped
+# bf16 rounding of a product input in bf16
+K2_TOL = {False: dict(atol=1e-4, rtol=1e-4), True: dict(atol=2e-2, rtol=1e-2)}
+# bf16 mode, K4 vs the plain colour head on the K2 kernel's reduced rows
+# (K4 computes them with K2's tile body) and K5 vs the plain march on K4's
+# outputs (chip_smoke.py COLOR_SOUND_TOL): only the colour layers'
+# summation order (K4) and the march's exp (K5) are left. Each limit lies
+# below the kernel's bf16-vs-f32 gap, which K2_TOL[True] does not.
+COLOR_SOUND_TOL = {"K4": 2e-3, "K5": 1e-6}
+
+
+def _on_k2_rows(feat, d, w, vd, block1, alpha, color, K):
+    """bf16 (alpha, colour logits): K2 kernel, then the plain colour head."""
+    fa, al = fused_block1_alpha(feat, d, w, block1, alpha, K=K, nf=3, df=5,
+                                bf16=True)
+    return al, color_tail_plain(fa, vd, color, vf=4, bf16=True)
+
+
+def _assert_sound_bf16(key, got, ref, got_f32):
+    """got within COLOR_SOUND_TOL[key] of ref, and that limit below the gap
+    between the kernel's bf16 and f32 modes: a kernel that never rounded
+    to bf16 would fail."""
+    atol = COLOR_SOUND_TOL[key]
+    torch.testing.assert_close(got, ref, atol=atol, rtol=0.0)
+    assert float((got - got_f32).abs().max()) > atol
+
+
+def _color_inputs(dev, M, K, C=256, vf=4, Nh=128, n_layers=4):
+    """K4/K5 inputs: K2's, with masked rows (w = 0) and a whole masked
+    point, unit view directions and a colour head of n_layers."""
+    feat, d, w, block1, alpha = _agg_inputs(dev, M=M, K=K, C=C)
+    w = w * (torch.rand(w.shape, device=dev) < 0.7)
+    w[0] = 0.0
+    g = torch.Generator().manual_seed(1)
+    vd = torch.randn(M, 3, generator=g)
+    vd = (vd / vd.norm(dim=-1, keepdim=True)).to(dev)
+    sizes = [C + 6 * vf] + [Nh] * (n_layers - 1) + [3]
+    color = [{"w": (torch.randn(i, o, generator=g) * (2.0 / (i + o)) ** 0.5
+                    ).to(dev),
+              "b": (torch.randn(o, generator=g) * 0.05).to(dev)}
+             for i, o in zip(sizes[:-1], sizes[1:])]
+    return feat, d, w, vd, block1, alpha, color
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("M,K,n_layers", [(501, 8, 4), (77, 3, 1)])
+def test_k4_kernel_matches_plain(dev, bf16, M, K, n_layers):
+    args = _color_inputs(dev, M, K, n_layers=n_layers)
+    n0 = fused_block1_alpha_color.launches
+    al, rc = fused_block1_alpha_color(*args, K=K, nf=3, df=5, vf=4, bf16=bf16)
+    assert fused_block1_alpha_color.launches == n0 + 1
+    ral, rrc = fused_block1_alpha_color_plain(*args, K=K, nf=3, df=5, vf=4,
+                                              bf16=bf16)
+    torch.testing.assert_close(al, ral, **K2_TOL[bf16])
+    torch.testing.assert_close(rc, rrc, **K2_TOL[bf16])
+    again = fused_block1_alpha_color(*args, K=K, nf=3, df=5, vf=4, bf16=bf16)
+    assert torch.equal(al, again[0]) and torch.equal(rc, again[1])
+    if bf16:
+        sal, src = _on_k2_rows(*args, K=K)
+        assert torch.equal(al, sal)       # K2's tile body, bit for bit
+        f32 = fused_block1_alpha_color(*args, K=K, nf=3, df=5, vf=4,
+                                       bf16=False)
+        _assert_sound_bf16("K4", torch.cat([al, rc], -1),
+                           torch.cat([sal, src], -1), torch.cat(f32, -1))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("SR,K", [(24, 8), (5, 8), (3, 8), (8, 4)])
+def test_k5_kernel_matches_plain(dev, bf16, SR, K):
+    """SR 24: three whole sub-tiles a ray; SR 5: one partial sub-tile; SR 3
+    and SR 8 with K 4: several rays a block."""
+    n_rays = 37
+    feat, d, w, vd, block1, alpha, color = _color_inputs(dev, n_rays * SR, K)
+    g = torch.Generator().manual_seed(2)
+    ray_dist = (torch.rand(n_rays * SR, generator=g) * 0.5 + 0.02).to(dev)
+    ray_valid = (torch.rand(n_rays * SR, generator=g) < 0.8).float().to(dev)
+    args = (feat, d, w, vd, ray_dist, ray_valid, block1, alpha, color)
+    n0 = fused_block1_alpha_color_march.launches
+    got = fused_block1_alpha_color_march(*args, K=K, nf=3, df=5, vf=4, SR=SR,
+                                         bf16=bf16)
+    assert fused_block1_alpha_color_march.launches == n0 + 1
+    ref = fused_block1_alpha_color_march_plain(*args, K=K, nf=3, df=5, vf=4,
+                                               SR=SR, bf16=bf16)
+    assert got.shape == (n_rays, 4)
+    torch.testing.assert_close(got, ref, **K2_TOL[bf16])
+    again = fused_block1_alpha_color_march(*args, K=K, nf=3, df=5, vf=4,
+                                           SR=SR, bf16=bf16)
+    assert torch.equal(got, again)
+    if bf16:
+        al, rc = fused_block1_alpha_color(feat, d, w, vd, block1, alpha,
+                                          color, K=K, nf=3, df=5, vf=4,
+                                          bf16=True)
+        f32 = fused_block1_alpha_color_march(*args, K=K, nf=3, df=5, vf=4,
+                                             SR=SR, bf16=False)
+        _assert_sound_bf16("K5", got, march_tail_plain(al, rc, ray_dist,
+                                                       ray_valid, SR=SR), f32)
+
+
+def _tiled_inputs(dev, nt, T, U, n_slots, C=64):
+    rows, delta, ok = _knn_inputs(dev, M=nt * U, C=C)
+    g = torch.Generator().manual_seed(3)
+    slot = torch.randint(0, n_slots, (nt * T,), generator=g,
+                         dtype=torch.int32).to(dev)
+    okp = (torch.rand(nt * T, generator=g) < 0.85).to(dev)
+    _, inv = tile_unique(slot, okp, T, U)
+    deltap = (torch.randn(nt * T, 3, generator=g) * 0.02).to(dev)
+    return rows, inv, deltap, okp
+
+
+@pytest.mark.parametrize("U,n_slots,overflow", [(160, 120, False),
+                                                (40, 120, True)])
+def test_k6_kernel_equals_plain_and_k1(dev, U, n_slots, overflow):
+    nt, T = 5, 1536
+    rows, inv, delta, ok = _tiled_inputs(dev, nt, T, U, n_slots)
+    assert bool(((inv == U) & ok).any()) == overflow
+    n0 = fused_knn_select_tiled.launches
+    got = fused_knn_select_tiled(rows, inv, delta, ok, 9e-4, C=64, K=8, T=T,
+                                 U=U)
+    assert fused_knn_select_tiled.launches == n0 + 1
+    ref = fused_knn_select_tiled_plain(rows, inv, delta, ok, 9e-4, C=64, K=8,
+                                       T=T, U=U)
+    assert torch.equal(got, ref)
+    tile = torch.arange(nt * T, device=dev) // T
+    own = rows[tile * U + inv.clamp(max=U - 1).long()]
+    k1 = fused_knn_select(own, delta, ok, 9e-4, C=64, K=8)
+    kept = inv < U
+    assert torch.equal(got[kept], k1[kept])
+    assert (got[~kept] == -1).all()
+    assert torch.equal(got, fused_knn_select_tiled(rows, inv, delta, ok, 9e-4,
+                                                   C=64, K=8, T=T, U=U))
+
+
+def test_k4_autograd_backward_matches_plain(dev):
+    """K4's backward on CUDA: K2 recompute, the colour tail by autograd,
+    K3 — one launch each — against autograd of the plain K4."""
+    feat, d, w, vd, block1, alpha, color = _color_inputs(dev, 200, 8)
+    leaves = [feat, vd] + [t for l_ in block1 + color for t in l_.values()]
+    for t in leaves:
+        t.requires_grad_(True)
+    n = (fused_block1_alpha_color.launches, fused_block1_alpha.launches,
+         fused_block1_alpha_bwd.launches)
+    al, rc = fused_block1_alpha_color(feat, d, w, vd, block1, alpha, color,
+                                      K=8, nf=3, df=5, vf=4, bf16=False)
+    got = torch.autograd.grad((rc ** 2).sum() + 3 * (al ** 2).sum(), leaves)
+    assert (fused_block1_alpha_color.launches, fused_block1_alpha.launches,
+            fused_block1_alpha_bwd.launches) == (n[0] + 1, n[1] + 1, n[2] + 1)
+    al, rc = fused_block1_alpha_color_plain(feat, d, w, vd, block1, alpha,
+                                            color, K=8, nf=3, df=5, vf=4,
+                                            bf16=False)
+    ref = torch.autograd.grad((rc ** 2).sum() + 3 * (al ** 2).sum(), leaves)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        err = float((a - b).abs().max())
+        assert err <= K3_TOL[False] * float(b.abs().max()) + 1e-7, (i, err)
+
+
+def test_color_wrappers_refuse_mixed_devices(dev):
+    feat, d, w, vd, block1, alpha, color = _color_inputs(dev, 16, 8)
+    with pytest.raises(ValueError):
+        fused_block1_alpha_color(feat, d, w, vd.cpu(), block1, alpha, color,
+                                 K=8, nf=3, df=5, vf=4, bf16=False)
+    rows, inv, delta, ok = _tiled_inputs(dev, 1, 64, 16, 40)
+    with pytest.raises(ValueError):
+        fused_knn_select_tiled(rows, inv.cpu(), delta, ok, 0.0, C=64, K=8,
+                               T=64, U=16)

@@ -151,9 +151,6 @@ def test_scene_model_device_comes_from_gpu_ids():
     ["--wcoord_query", "0"],
     ["--scene_shards", "2"],
     ["--ray_shards", "4"],
-    ["--fused_color", "on"],
-    ["--fused_march", "on"],
-    ["--knn_mode", "dedup"],
     ["--knn_mode", "approx"],
     ["--gather_vjp", "sorted"],
     ["--gather_round", "stochastic"],
@@ -162,3 +159,30 @@ def test_flags_outside_the_slice_raise(flags):
     from sgnerf_tpu_torch.options import configs_from_opt
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         configs_from_opt(_opt(flags))
+
+
+@pytest.mark.parametrize("flag,value", [("fused_color", "on"),
+                                        ("fused_march", "on"),
+                                        ("knn_mode", "dedup")])
+def test_opt_in_kernel_flags_resolve_as_in_the_jax_package(flag, value):
+    """--fused_color on / --fused_march on (kernels K4, K5) set the same
+    AggregatorConfig fields as the JAX package's configs_from_opt, on the
+    CPU and the card; --knn_mode dedup is no CLI mode in either package
+    (K6 is reached through RenderConfig)."""
+    from sgnerf_tpu.options.options import configs_from_opt as jconfigs
+    from sgnerf_tpu_torch.options import configs_from_opt
+
+    opt = _opt([f"--{flag}", value])
+    if flag == "knn_mode":
+        for fn in (configs_from_opt, jconfigs):
+            with pytest.raises(ValueError, match="auto/exact/approx/fused"):
+                fn(opt)
+        return
+    cfg, _, _ = configs_from_opt(opt)
+    jcfg, _, _ = jconfigs(opt)
+    assert getattr(cfg.agg, flag) is getattr(jcfg.agg, flag) is True
+    assert (cfg.agg.fused_color, cfg.agg.fused_march) == (
+        jcfg.agg.fused_color, jcfg.agg.fused_march)
+    card, _, _ = configs_from_opt(_opt([f"--{flag}", value, "--gpu_ids",
+                                        "0"]))
+    assert getattr(card.agg, flag) is True and card.agg.fused_mlp == "cuda"
