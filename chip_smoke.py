@@ -55,7 +55,31 @@ fine-tune train step (the flags of scene0113_00_default.sh). Phases:
  13. the train step of phase 6 with --fused_color on: one step's loss and
      gradients equal phase 6's kernel path (K2 + the colour head outside
      + K3) from the same state and noise; then 3 steps, each launching K4,
-     K2 (the backward's recompute) and K3 once.
+     K2 (the backward's recompute) and K3 once;
+ 14. the row gather K7 (gather_rows_pallas) and its staged form
+     (gather_rows_staged, the TPU probes' counterpart) bit-equal to
+     index_select at the probes' two shapes (cache: 221,184 rows of 640 B
+     from 1.2M; attribute: 1,769,472 rows of 128 B from 1M), in int16 and
+     f32; K7's transpose twice the same bits and within 1e-6 (relative to
+     its largest magnitude) of index_add_ in f32. Then the probe
+     (sgnerf_tpu_torch/dev/probe_gather.py) with the counters reset just
+     before: K7 and the staged form at wave 8, 16, 32 and index_select,
+     ms, GB/s and share of the bound, and static ids at the cache shape;
+ 15. growing at full width: the phase-6 train model on phase 8's export,
+     holes cut into the walls the train views face (their points pruned),
+     then probe_and_grow with opacity_thresh 0 (growth forced) with the
+     counters reset just before: the probe frame's ms and K2 launches, the
+     points grown, n_active before and after, the grow + grid rebuild
+     seconds, the peak memory; n_active must grow by the points grown.
+     The middle 2304-ray chunk of that probe frame (the rows through the
+     holes) rendered with prob=True through the kernel path, K2 against
+     its plain version on the inputs captured there, and the chunk
+     through the un-fused path: ray_mask equal, the other eight probe
+     outputs within tolerance. A train step after growing must give a finite
+     loss; one probe frame under
+     torch.profiler (device time by kernel). Then train_ft.main
+     with the canonical growing flags (--prob_freq 5 ...) for 10 steps,
+     through the probes of steps 5 and 10.
 
 Any failure raises and the script exits non-zero before its last line.
 The last line is {"ok": true, "device": {...}}; the line before it holds
@@ -99,6 +123,9 @@ RENDER_ATOL = 1e-4
 K3_TOL = {False: 2e-3, True: 3e-2}
 # train step, kernel path vs un-fused path from the same state and noise
 LOSS_RTOL = 1e-5
+# K7's transpose (a sequential sum per id) vs index_add_ (atomics), f32,
+# relative to the largest magnitude: the two sum in different orders
+GATHER_BWD_RTOL = 1e-6
 TRAIN_STEPS = 8
 FUSED_COLOR_STEPS = 3
 # the card's peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, FP32 FLOP/s
@@ -355,13 +382,18 @@ def capture_first_grad(module, name, store):
 
 
 def kernel_wrappers():
-    """The six kernel wrappers, each with its `.launches` count."""
-    from sgnerf_tpu_torch.ops import fused_agg, fused_knn
+    """The eight kernel wrappers, each with its `.launches` count."""
+    from sgnerf_tpu_torch.ops import fused_agg, fused_knn, pallas_gather
     return [fused_knn.fused_knn_select, fused_agg.fused_block1_alpha,
             fused_agg.fused_block1_alpha_bwd,
             fused_agg.fused_block1_alpha_color,
             fused_agg.fused_block1_alpha_color_march,
-            fused_knn.fused_knn_select_tiled]
+            fused_knn.fused_knn_select_tiled,
+            pallas_gather.gather_rows_pallas,
+            pallas_gather.gather_rows_staged]
+
+
+NO_GATHER = {"gather_rows_pallas": 0, "gather_rows_staged": 0}
 
 
 def reset_launches():
@@ -410,7 +442,8 @@ def main():
     from sgnerf_tpu_torch.ops import query as query_mod
     from sgnerf_tpu_torch.runtime.scene_model import SceneModel
 
-    for d in ("smoke", "smoke_ft", "smoke_scans"):   # this script's outputs
+    for d in ("smoke", "smoke_ft", "smoke_scans",
+              "smoke_grow"):                          # this script's outputs
         shutil.rmtree(os.path.join(REPO, "build", d), ignore_errors=True)
 
     # ---- 1. the card
@@ -522,6 +555,14 @@ def main():
 
     # ---- 13. the train step with the colour head in kernel K4
     phase13_train_fused_color(item)
+    torch.cuda.empty_cache()
+
+    # ---- 14. K7 and the staged form vs index_select, then the probe
+    records.update(phase14_gather(torch.device("cuda")))
+    torch.cuda.empty_cache()
+
+    # ---- 15. growing at full width
+    phase15_growing()
 
     log(json.dumps({"kernels": [records[k] for k in sorted(records)]}))
     log(json.dumps({"ok": True, "device": {
@@ -952,7 +993,7 @@ def phase13_train_fused_color(item):
                         "fused_block1_alpha_bwd": n,
                         "fused_block1_alpha_color": n,
                         "fused_block1_alpha_color_march": 0,
-                        "fused_knn_select_tiled": 0}, launches
+                        "fused_knn_select_tiled": 0, **NO_GATHER}, launches
 
 
 def phase6_7_train(item):
@@ -1007,9 +1048,9 @@ def phase6_7_train(item):
                         "fused_block1_alpha_bwd": TRAIN_STEPS,
                         "fused_block1_alpha_color": 0,
                         "fused_block1_alpha_color_march": 0,
-                        "fused_knn_select_tiled": 0}, launches
+                        "fused_knn_select_tiled": 0, **NO_GATHER}, launches
 
-    profile_step(model, batch)
+    profile_call("phase 6: profiled step", lambda: model.optimize(batch))
 
     # the same step through the kernels and through the un-fused path
     plain_cfg = dataclasses.replace(
@@ -1074,17 +1115,16 @@ def phase6_7_train(item):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
-def profile_step(model, batch, top=8):
-    """One more train step under torch.profiler: the device time by kernel
-    (the largest `top`), the device-busy sum against the step's wall
-    time."""
+def profile_call(what, fn, top=8):
+    """fn() once more under torch.profiler: the device time by kernel (the
+    largest `top`), the device-busy sum against the call's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.optimize(batch)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     def dev_us(e):
@@ -1094,7 +1134,7 @@ def profile_step(model, batch, top=8):
                       if e.device_type == torch.autograd.DeviceType.CUDA),
                      key=lambda e: -dev_us(e))
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-    log(f"phase 6: profiled step {wall_ms:.1f} ms wall, device busy "
+    log(f"{what} {wall_ms:.1f} ms wall, device busy "
         f"{busy_ms:.1f} ms ({busy_ms / wall_ms:.0%}); by kernel (ms): "
         + "; ".join(f"{e.key[:48]} {dev_us(e) / 1e3:.2f}"
                     for e in kernels[:top]))
@@ -1145,6 +1185,285 @@ def phase8_train_ft():
     assert psnr_lines and all(np.isfinite(float(l_.split("psnr:")[1].split()[0]))
                               for l_ in psnr_lines), psnr_lines
     assert fused_block1_alpha_bwd.launches == 10
+
+
+def phase14_gather(dev):
+    """Phase 14: K7 and the staged form against index_select at the
+    probes' shapes, K7's transpose; then the probe, the path of both
+    kernels, with every counter reset just before. Returns their
+    records."""
+    import torch
+    from sgnerf_tpu_torch.dev import probe_gather
+    from sgnerf_tpu_torch.ops.pallas_gather import (gather_rows_pallas,
+                                                    gather_rows_staged)
+    errs = {}
+    for shape in ("cache", "attr"):
+        table, idx = probe_gather.make_case(shape, dev, seed=1)
+        gen = torch.Generator(device=dev).manual_seed(2)
+        f32 = torch.randn(table.shape[0], table.shape[1] // 2, device=dev,
+                          generator=gen)
+        for t in (table, f32):
+            ref = t.index_select(0, idx)
+            for fn in (gather_rows_pallas, gather_rows_staged):
+                got = fn(t, idx)
+                torch.cuda.synchronize()
+                err = float((got.float() - ref.float()).abs().max())
+                errs[fn.__name__] = max(errs.get(fn.__name__, 0.0), err)
+                assert torch.equal(got, ref), (shape, t.dtype, fn.__name__)
+            del ref, got
+        log(f"phase 14: {shape}: {idx.numel()} rows of "
+            f"{table.shape[1] * 2} B from {table.shape[0]}: K7 and the "
+            f"staged form equal index_select in int16 and f32")
+        # K7's transpose: the same bits twice, against index_add_
+        leaf = f32.requires_grad_(True)
+        g = torch.randn(idx.numel(), f32.shape[1], device=dev, generator=gen)
+        grads = []
+        for _ in range(2):
+            leaf.grad = None
+            gather_rows_pallas(leaf, idx).backward(g)
+            grads.append(leaf.grad)
+        ref = torch.zeros_like(f32).index_add_(0, idx.long(), g)
+        torch.cuda.synchronize()
+        err = float((grads[0] - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        log(f"phase 14: {shape}: K7 transpose reruns equal "
+            f"{torch.equal(grads[0], grads[1])}; vs index_add_ max |diff| "
+            f"{err:.3e}, relative to max |ref| {rel:.3e} (tolerance "
+            f"{GATHER_BWD_RTOL})")
+        assert torch.equal(grads[0], grads[1]) and rel <= GATHER_BWD_RTOL
+        del table, idx, f32, leaf, g, grads, ref
+        torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    reset_launches()
+    probe = probe_gather.run(dev, log=log)
+    launches = read_launches()
+    log(f"phase 14: probe launches {launches}")
+    assert launches["gather_rows_pallas"] > 0, launches
+    assert launches["gather_rows_staged"] > 0, launches
+    assert sum(launches.values()) == (launches["gather_rows_pallas"]
+                                      + launches["gather_rows_staged"])
+
+    def pick(form):
+        return next(r for r in probe if r["case"] == "cache"
+                    and r["form"] == form and r["wave"] in (16, None))
+    lib = pick("index_select")
+    records = {}
+    for key, form, what in (
+            ("K7", "gather_rows_pallas", "sgnerf_tpu/ops/pallas_gather.py:79"),
+            ("P", "gather_rows_staged",
+             "dev_scripts/probe_pallas_gather.py:66")):
+        rec = pick(form)
+        records[key] = {
+            "name": form, "route": "cuda",
+            "source": "sgnerf_tpu_torch/csrc/gather_rows.cu",
+            "replaces": what, "launches": launches[form],
+            "max_abs_err": errs[form], "ms": rec["ms"],
+            "plain_ms": lib["ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": "bytes", "library_ms": lib["ms"]}
+    return records
+
+
+def cut_holes(model, dataset, radius=0.4):
+    """Prune the points within `radius` of where each view's central ray
+    leaves the 5 x 5 x 3 m room: holes in the walls the views face, which
+    their rays see through. Returns the points removed."""
+    import torch
+    half = np.array([2.5, 2.5, 1.5])
+    centres = []
+    for i in range(len(dataset)):
+        c2w = dataset.get_item(i)["c2w"].astype(np.float64)
+        o, f = c2w[:3, 3], c2w[:3, 2]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t = np.where(f != 0, (np.sign(f) * half - o) / f, np.inf)
+        centres.append(o + t.min() * f)
+    cloud = model.cloud
+    near = torch.zeros_like(cloud.active)
+    for c in centres:
+        d = cloud.xyz - torch.as_tensor(c, dtype=torch.float32,
+                                        device=cloud.xyz.device)
+        near |= (d * d).sum(-1) < radius ** 2
+    n0 = int(cloud.n_active)
+    with torch.no_grad():
+        cloud.conf[near] = 0.0
+    model.prune_points(0.1)
+    return n0 - int(model.cloud.n_active)
+
+
+def probe_chunk_checks(model, item, chunk, chunk_rays=2304):
+    """Phase 15's checks on one chunk of the probe frame `item`, on the
+    grown model: the chunk rendered with prob=True through the kernel
+    path, K2's inputs captured there, and K2 against its plain version on
+    them (K2_TOL); then the chunk through the un-fused path: ray_mask
+    equal, the other probe outputs within RENDER_ATOL."""
+    import torch
+    from sgnerf_tpu_torch.models import aggregator as agg_mod
+    from sgnerf_tpu_torch.models.renderer import render_rays
+    from sgnerf_tpu_torch.ops.fused_agg import (fused_block1_alpha,
+                                                fused_block1_alpha_plain)
+    from sgnerf_tpu_torch.runtime.growing import PROBE_KEYS
+    dev = model.device
+    s = slice(chunk * chunk_rays, (chunk + 1) * chunk_rays)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    kw = dict(campos=t(item["campos"])[None],
+              raydir=t(item["raydir"][s])[None],
+              camrotc2w=t(item["camrotc2w"])[None],
+              near=float(item["near"]), far=float(item["far"]),
+              bg_color=t(item["bg_color"]), table=model.table, prob=True)
+    plain_cfg = dataclasses.replace(
+        model.cfg, agg=dataclasses.replace(model.cfg.agg, fused_mlp="none"))
+    captured = {}
+    k2_fn = capture_first_call(agg_mod, "fused_block1_alpha", captured)
+    try:
+        with torch.inference_mode():
+            a = render_rays(model.params, model.cloud, model.grid, model.cfg,
+                            **kw)
+    finally:
+        agg_mod.fused_block1_alpha = k2_fn
+    args, kwargs = captured["fused_block1_alpha"]
+    plain_kw = {k: v for k, v in kwargs.items() if k != "bwd"}
+    with torch.inference_mode():
+        got = torch.cat(fused_block1_alpha(*args, **kwargs), dim=-1)
+        ref = torch.cat(fused_block1_alpha_plain(*args, **plain_kw), dim=-1)
+        torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    tol = K2_TOL[bool(kwargs["bf16"])]
+    log(f"phase 15: K2 on probe chunk {chunk} (M={args[0].shape[0]} "
+        f"K={kwargs['K']} bf16={kwargs['bf16']}): max |diff| to plain "
+        f"{err:.3e} (tolerance {tol})")
+    assert torch.allclose(got, ref, **tol), err
+    del captured, args, got, ref
+
+    with torch.inference_mode():
+        b = render_rays(model.params, model.cloud, model.grid, plain_cfg,
+                        **kw)
+    hits = int(b["ray_mask"].sum())
+    diffs = {k: float((a[k].float() - b[k].float()).abs().max())
+             for k in PROBE_KEYS if k != "ray_mask"}
+    log(f"phase 15: probe chunk {chunk} ({hits} of {chunk_rays} rays hit), "
+        f"kernel path vs un-fused path: ray_mask equal "
+        f"{torch.equal(a['ray_mask'], b['ray_mask'])}, max |diff| {diffs} "
+        f"(tolerance {RENDER_ATOL})")
+    assert torch.equal(a["ray_mask"], b["ray_mask"])
+    assert hits > 0, hits
+    for k, d in diffs.items():
+        assert torch.isfinite(a[k]).all() and d <= RENDER_ATOL, (k, d)
+
+
+def phase15_growing():
+    """Phase 15: a forced growing cycle on the 4.2M-point train model, then
+    train_ft with the canonical growing flags."""
+    import torch
+    from sgnerf_tpu_torch.data import create_dataset
+    from sgnerf_tpu_torch.options import TrainOptions
+    from sgnerf_tpu_torch.run import train_ft
+    from sgnerf_tpu_torch.runtime import growing
+    from sgnerf_tpu_torch.runtime.scene_model import SceneModel
+
+    build = os.path.join(REPO, "build")
+    scans = os.path.join(build, "smoke_scans")          # phase 8's export
+    data = ["--data_root", scans + "/", "--scan", "scene_smoke"]
+    # full probe frames (no_crop): every pixel of a view is probed
+    opt = TrainOptions().parse(TRAIN_FLAGS + data + [
+        "--name", "smoke", "--checkpoints_dir", build,
+        "--random_sample", "no_crop", "--prob_num_step", "100",
+        "--prob_mul", "0.4"])
+    opt.split = "train"
+    dataset = create_dataset(opt)
+    model = SceneModel(opt)
+    model.load_checkpoint(model.resolve_resume())
+    t0 = time.perf_counter()
+    cut = cut_holes(model, dataset)
+    torch.cuda.synchronize()
+    log(f"phase 15: holes cut: {cut} points pruned in "
+        f"{time.perf_counter() - t0:.2f} s (prune + grid rebuild)")
+
+    times = {}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[name] = time.perf_counter() - t
+            return out
+        return run
+    probe_maps = growing.render_probe_maps
+    timed_maps, items = timed("probe", probe_maps), []
+
+    def probe_frame(model_, item, **kw):
+        items.append(item)      # the item only: its grid must go at grow
+        return timed_maps(model_, item, **kw)
+    growing.render_probe_maps = probe_frame
+    model.grow_points = timed("grow", model.grow_points)
+    n0 = int(model.cloud.n_active)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    try:
+        grown = growing.probe_and_grow(model, dataset, opt, 0,
+                                       opacity_thresh=0.0)
+    finally:
+        growing.render_probe_maps = probe_maps
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n1 = int(model.cloud.n_active)
+    n_rays = dataset.get_item(0)["raydir"].shape[0]
+    n_chunks = -(-n_rays // 2304)
+    log(f"phase 15: probe frame of {n_rays} rays ({n_chunks} chunks of "
+        f"2304) in {times['probe'] * 1e3:.1f} ms, launches {launches}; "
+        f"grown {grown} points, n_active {n0} -> {n1} (capacity "
+        f"{model.cloud.capacity}); grow + grid rebuild "
+        f"{times.get('grow', 0.0):.2f} s; peak memory {peak:.2f} GiB")
+    assert n1 == n0 + grown > n0, (n0, n1, grown)
+    assert launches["fused_block1_alpha"] == n_chunks, launches
+    assert sum(launches.values()) == n_chunks, launches
+    assert int(model.cloud.active.sum()) == n1
+    probe_chunk_checks(model, items[0], n_chunks // 2)   # rows through holes
+    probe_item = dataset.get_item(0, full_img=True)
+    profile_call("phase 15: profiled probe frame",
+                 lambda: growing.render_probe_maps(model, probe_item))
+    out = model.optimize(train_batch(dataset.get_item(0), model.device))
+    loss = float(out["total"])
+    log(f"phase 15: one train step after growing: loss {loss:.6f}")
+    assert np.isfinite(loss)
+    del model, out
+    torch.cuda.empty_cache()
+
+    # the training CLI with the canonical growing flags
+    expr = os.path.join(build, "smoke_grow", "ft")
+    os.makedirs(expr, exist_ok=True)
+    for ext in ("", ".meta.json"):
+        shutil.copy(os.path.join(build, "smoke",
+                                 "0_net_ray_marching.npz" + ext),
+                    os.path.join(expr, "0_net_ray_marching.npz" + ext))
+    flags = TRAIN_FLAGS + data + [
+        "--name", "ft", "--checkpoints_dir", os.path.join(build, "smoke_grow"),
+        "--maximum_step", "10", "--save_iter_freq", "10", "--test_num", "1",
+        "--test_freq", "0", "--print_freq", "5",
+        # scene0113_00_default.sh's growing flags, every 5 steps
+        "--prob_freq", "5", "--prob_num_step", "100",
+        "--prob_kernel_size", "3", "3", "3", "1", "1", "1",
+        "--prob_tiers", "40000", "120000", "--prob_thresh", "0.7",
+        "--prob_mul", "0.4"]
+    tee = Tee(sys.stdout)
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        train_ft.main(flags)
+    torch.cuda.synchronize()
+    text = tee.buf.getvalue()
+    probes = [l_ for l_ in text.splitlines()
+              if l_.startswith(("grow: +", "probe_and_grow: "))]
+    log(f"phase 15: train_ft with --prob_freq 5 ran 10 steps in "
+        f"{time.perf_counter() - t0:.1f} s; probes {probes}; launches "
+        f"{read_launches()}")
+    assert "training from step 0 to 10" in text
+    assert len(probes) == 2, probes
+    assert os.path.exists(os.path.join(expr, "10_net_ray_marching.npz"))
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """Neural point cloud: capacity-padded struct of tensors.
 
 PyTorch counterpart of `sgnerf_tpu/models/point_cloud.py`: construction,
-grid spec and build, and `prune`. Every field of the JAX cloud is carried
+grid spec and build, `prune` and `grow`. Every field of the JAX cloud is carried
 (so either package loads the other's native checkpoints); the semantic
 fields (feats, label, label_prob, sem_embedding) and the per-part rotation
 index ride along unused until the semantic slice (ROADMAP item 11) and
@@ -124,6 +124,44 @@ def prune(cloud: NeuralPointCloud, thresh: float) -> NeuralPointCloud:
                         torch.full_like(cloud.xyz, 1e9)),
         active=keep,
         n_active=keep.sum().to(torch.int32))
+
+
+# per-point fields that grow does not write: reset to their padding
+_UNGROWN_FIELDS = ("feats", "label", "label_prob", "sem_embedding", "rot_idx")
+
+
+@torch.no_grad()
+def grow(cloud: NeuralPointCloud, new_xyz, new_embedding, new_conf,
+         new_color, new_dir) -> NeuralPointCloud:
+    """Append G new points (host arrays) into free slots, in place on the
+    device (reference `grow_points`, neural_points.py:546-572): the lowest
+    inactive slots, which are n_active .. n_active+G-1 when the live points
+    fill the front of the cloud, as the JAX `grow` writes them. After a
+    prune the holes come first: the JAX `grow` writes at n_active whatever
+    lives there (ROADMAP.md section 3, F7). The slots' other per-point
+    fields go back to make_point_cloud's padding (zeros), so a pruned
+    point's labels and features do not pass to the new one. Rows past the
+    capacity are dropped, never written onto a live slot;
+    SceneModel.grow_points re-allocates before that can happen."""
+    g = int(np.asarray(new_xyz).shape[0])
+    if g == 0:
+        return cloud
+    free = torch.nonzero(~cloud.active).reshape(-1)[:g]
+    k = int(free.shape[0])
+    for name, src in (("xyz", new_xyz), ("embedding", new_embedding),
+                      ("conf", new_conf), ("color", new_color),
+                      ("dir", new_dir)):
+        dst = getattr(cloud, name)
+        rows = np.asarray(src, np.float32).reshape(g, -1)
+        if rows.shape[1] != dst.shape[1]:
+            raise ValueError(f"grow: {name} rows have width {rows.shape[1]}, "
+                             f"the cloud's {dst.shape[1]}")
+        dst[free] = torch.as_tensor(rows[:k], device=dst.device)
+    for name in _UNGROWN_FIELDS:
+        getattr(cloud, name)[free] = 0
+    cloud.active[free] = True
+    cloud.n_active.add_(k)
+    return cloud
 
 
 def build_grid(cloud: NeuralPointCloud, spec: GridSpec) -> PointGrid:

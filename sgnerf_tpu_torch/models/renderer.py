@@ -10,8 +10,14 @@ Training (`is_train=True`) jitters the sample depths with uniforms drawn
 by `draw_render_noise` (or passed in as `noise`, so tests can feed the
 noise JAX drew) and rebuilds the attribute table from the cloud's live
 tensors each call: the gather's transpose is a scatter-add (`index_add_`)
-into that table (the JAX package's `gather_vjp="scatter"`). Only a
-float32 table trains.
+into that table (the JAX package's `gather_vjp="scatter"`), or with
+`gather_vjp="sorted"` a sort and segment sum in float32 (`gather_rows`).
+Only a float32 table trains.
+
+`prob=True` (the growing probes, runtime/growing.py) adds per-ray stats at
+the sample of largest opacity: its opacity and position, the distance to
+its nearest neighbour, and the neighbours' colour, direction, confidence
+and embedding averaged with weight * conf_coefficient.
 
 `--attr_dedup` is served by the plain row gather. The reference's
 `dedup_tile_gather` is a TPU one-hot-matmul way to gather each tile's
@@ -27,6 +33,7 @@ import torch
 
 from ..ops.camera import w2pers
 from ..ops.grid import PointGrid
+from ..ops.pallas_gather import sorted_segment_sum
 from ..ops.march import (BLEND_FUNCS, RENDER_FUNCS, TONE_MAPS, ray_march,
                          ray_dist_from_z)
 from ..ops.query import query_neighbors
@@ -55,6 +62,8 @@ class RenderConfig:
     dedup_tile: int = 64             # rays per dedup tile (consecutive)
     dedup_cap: int = 160             # distinct cache rows per tile
     gather_dtype: str = "float32"    # "bfloat16" attribute table
+    gather_vjp: str = "scatter"      # attribute-gather transpose: "scatter"
+    #                                  (index_add_) or "sorted" (gather_rows)
     compute_depth: int = 0           # emit coarse_depth
     jitter: float = 0.3              # train-time sample jitter fraction
 
@@ -114,6 +123,29 @@ class _GatherRows(torch.autograd.Function):
         return gt, None
 
 
+class _GatherRowsSorted(_GatherRows):
+    """table[idx] whose transpose is a sort and a float32 segment sum."""
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        flat = idx.reshape(-1)
+        rows = g.reshape((flat.shape[0], -1)).to(torch.float32)
+        gt = sorted_segment_sum(flat, rows, ctx.n_rows)
+        return gt.reshape((ctx.n_rows,) + g.shape[idx.dim():]).to(g.dtype), \
+            None
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx] whose transpose sorts the cotangent rows by index and sums
+    each run in float32, then casts to the cotangent's dtype (the JAX
+    package's `gather_rows`, `--gather_vjp sorted`): a bf16 table's
+    duplicate ids are summed without bf16 rounding between terms. Unlike
+    K7's transpose (`ops/pallas_gather.py`), which sums in the cotangent's
+    own dtype; the two share the sort and segment step."""
+    return _GatherRowsSorted.apply(table, idx)
+
+
 def render_rays(params: Dict, cloud: NeuralPointCloud, grid: PointGrid,
                 cfg: RenderConfig, *, campos: torch.Tensor,
                 raydir: torch.Tensor, camrotc2w: torch.Tensor, near, far,
@@ -121,12 +153,13 @@ def render_rays(params: Dict, cloud: NeuralPointCloud, grid: PointGrid,
                 table: Optional[torch.Tensor] = None,
                 noise: Optional[Dict[str, torch.Tensor]] = None,
                 generator: Optional[torch.Generator] = None,
-                is_train: bool = False) -> Dict[str, torch.Tensor]:
+                is_train: bool = False,
+                prob: bool = False) -> Dict[str, torch.Tensor]:
     """campos (B,3), raydir (B,R,3), camrotc2w (B,3,3) -> output dict with
     coarse_raycolor (B,R,3) and the per-sample march terms. `table` is the
     packed attribute table (eval only; built from the cloud when not given,
     and always when training). `noise` (or draws from `generator`) jitters
-    the samples when `is_train`."""
+    the samples when `is_train`. `prob` adds the growing probes' outputs."""
     B, R, _ = raydir.shape
     if is_train and cfg.gather_dtype != "float32":
         raise NotImplementedError(
@@ -149,7 +182,7 @@ def render_rays(params: Dict, cloud: NeuralPointCloud, grid: PointGrid,
         table = attribute_table(cloud, cfg.gather_dtype)
     return _shade_and_march(params, cloud, cfg, table, q.sample_pidx,
                             q.sample_loc_w, q.ray_mask, campos, raydir,
-                            camrotc2w, bg_color, is_train)
+                            camrotc2w, bg_color, is_train, prob)
 
 
 def gather_and_aggregate(params, cloud, cfg: RenderConfig, table, sample_pidx,
@@ -157,13 +190,15 @@ def gather_and_aggregate(params, cloud, cfg: RenderConfig, table, sample_pidx,
                          fuse_march=False):
     """Neighbour-attribute gather + per-neighbour aggregation. Returns
     (decoded (B,R,SR,4), ray_valid, weight, conf_coefficient, sample_loc
-    (perspective coords)); with `fuse_march` the aggregation marches in
-    kernel K5 and decoded is {"march": (B,R,4)}."""
+    (perspective coords), sampled: the gathered xyz, embedding, color, dir
+    and conf (B,R,SR,K,.) for the growing probes); with `fuse_march` the
+    aggregation marches in kernel K5 and decoded is {"march": (B,R,4)}."""
     B, R, _ = raydir.shape
     agg = cfg.agg
     mask = sample_pidx >= 0
     pid = sample_pidx.clamp(0, cloud.capacity - 1).long()
-    g = _GatherRows.apply(table, pid).to(torch.float32)
+    take = gather_rows if cfg.gather_vjp == "sorted" else _GatherRows.apply
+    g = take(table, pid).to(torch.float32)
     F = cloud.embedding.shape[-1]
     # zero the padding gathers so masked rows stay finite
     sampled_xyz = g[..., 0:3] * mask[..., None]
@@ -193,23 +228,26 @@ def gather_and_aggregate(params, cloud, cfg: RenderConfig, table, sample_pidx,
         sample_loc_w=sample_loc_w,
         sample_ray_dirs=raydir[:, :, None, :].expand(B, R, cfg.SR, 3),
         Rw2c=cloud.Rw2c, vsize=cfg.vsize, march=march)
-    return decoded, ray_valid, weight, conf_coefficient, sample_loc
+    sampled = {"xyz": sampled_xyz, "embedding": sampled_embedding,
+               "color": g[..., 3 + F:6 + F], "dir": g[..., 6 + F:9 + F],
+               "conf": sampled_conf}
+    return decoded, ray_valid, weight, conf_coefficient, sample_loc, sampled
 
 
 def _shade_and_march(params, cloud, cfg: RenderConfig, table, sample_pidx,
                      sample_loc_w, ray_mask, campos, raydir, camrotc2w,
-                     bg_color, is_train=False):
+                     bg_color, is_train=False, prob=False):
     """Everything downstream of the neighbour query."""
     B, R, _ = raydir.shape
     # --fused_march: shading and march in kernel K5, for eval renders of the
-    # radiance/alpha/off tail the kernel implements (training needs the
-    # per-sample outputs)
-    fuse_march = (cfg.agg.fused_march and not is_train
+    # radiance/alpha/off tail the kernel implements (training and the probes
+    # need the per-sample outputs)
+    fuse_march = (cfg.agg.fused_march and not is_train and not prob
                   and cfg.which_render_func == "radiance"
                   and cfg.which_blend_func == "alpha"
                   and cfg.which_tonemap_func == "off"
                   and cfg.agg.act_super > 0)
-    decoded, ray_valid, weight, conf_coefficient, sample_loc = \
+    decoded, ray_valid, weight, conf_coefficient, sample_loc, sampled = \
         gather_and_aggregate(params, cloud, cfg, table, sample_pidx,
                              sample_loc_w, campos, raydir, camrotc2w,
                              fuse_march=fuse_march)
@@ -249,4 +287,35 @@ def _shade_and_march(params, cloud, cfg: RenderConfig, table, sample_pidx,
         w = opacity * acc_transmission
         output["coarse_depth"] = ((w * sample_loc[..., 2]).sum(-1)
                                   / (w.sum(-1) + 1e-6))
+    if prob:
+        output.update(_probe_outputs(opacity, sample_loc_w, weight,
+                                     conf_coefficient, sampled))
     return output
+
+
+def _probe_outputs(opacity, sample_loc_w, weight, conf_coefficient,
+                   sampled) -> Dict[str, torch.Tensor]:
+    """Per ray, the growing probes' stats at its sample of largest opacity
+    (reference neural_points_volumetric_model.py:633-668). The first such
+    sample, as jnp.argmax picks it: torch.argmax does not promise the
+    first of equal maxima on CUDA."""
+    B, R, SR = opacity.shape
+    max_op = opacity.max(dim=-1, keepdim=True).values       # (B,R,1)
+    pos = torch.arange(SR, device=opacity.device)
+    ind = torch.where(opacity == max_op, pos,
+                      torch.full_like(pos, SR)).min(dim=-1).values
+
+    def take(a):             # a (B,R,SR,...) -> (B,R,...) at sample ind
+        idx = ind.reshape(B, R, 1, *([1] * (a.dim() - 3))).expand(
+            B, R, 1, *a.shape[3:])
+        return torch.gather(a, 2, idx)[:, :, 0]
+
+    loc = take(sample_loc_w)                                 # (B,R,3)
+    wsel = take(weight * conf_coefficient)[..., None]        # (B,R,K,1)
+    far = torch.linalg.norm(take(sampled["xyz"]) - loc[:, :, None, :],
+                            dim=-1).min(dim=-1, keepdim=True).values
+    out = {"ray_max_shading_opacity": max_op, "ray_max_sample_loc_w": loc,
+           "ray_max_far_dist": far}
+    for k in ("color", "dir", "conf", "embedding"):
+        out[f"shading_avg_{k}"] = (take(sampled[k]) * wsel).sum(-2)
+    return out

@@ -24,7 +24,8 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 # C entry points: name -> argtypes (every entry returns a cudaError_t as int)
 _SIGNATURES = {
     "fused_knn": {
@@ -60,6 +61,11 @@ _SIGNATURES = {
         "fused_block1_alpha_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
                                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
                                    _P, _P, _P, _P, _P],
+    },
+    "gather_rows": {
+        # table, idx, out, S, row_bytes, T, wave, stream
+        "gather_rows": [_P, _P, _P, _L, _I, _I, _I, _P],
+        "gather_rows_staged": [_P, _P, _P, _L, _I, _I, _I, _P],
     },
 }
 

@@ -273,7 +273,7 @@ def _check_slice(opt):
         _unsupported("--knn_mode approx", "item 17")
     if opt.gather_dtype == "int8":
         _unsupported("--gather_dtype int8", "item 17")
-    if getattr(opt, "gather_vjp", "scatter") != "scatter":
+    if getattr(opt, "gather_vjp", "scatter") not in ("scatter", "sorted"):
         _unsupported(f"--gather_vjp {opt.gather_vjp}", "item 17")
     if getattr(opt, "gather_round", "nearest") != "nearest":
         _unsupported(f"--gather_round {opt.gather_round}", "item 17")
@@ -336,6 +336,11 @@ def configs_from_opt(opt, device=None):
     fm = getattr(opt, "fused_march", "auto")
     if fm not in ("auto", "on", "off"):
         raise ValueError(f"--fused_march must be auto/on/off, got {fm!r}")
+    gv = getattr(opt, "gather_vjp", "scatter")
+    if gv not in ("scatter", "sorted", "f32", "spread", "raydedup",
+                  "batchdedup"):
+        raise ValueError("--gather_vjp must be scatter/sorted/f32/spread/"
+                         f"raydedup/batchdedup, got {gv!r}")
     _check_slice(opt)
 
     cuda = torch.device(device if device is not None
@@ -384,6 +389,7 @@ def configs_from_opt(opt, device=None):
         which_tonemap_func=opt.which_tonemap_func,
         raydist_mode_unit=opt.raydist_mode_unit,
         gather_dtype=opt.gather_dtype,
+        gather_vjp=gv,
         knn_mode=knn,
         # the reference emits depth when compute_depth OR any depth loss is
         # requested (neural_points_volumetric_model.py:211)

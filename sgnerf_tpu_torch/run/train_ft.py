@@ -10,13 +10,15 @@ Counterpart of run/train_ft.py (reference run/train_ft.py):
      downsample them and initialise the per-point attributes;
   3. train on random-ray batches from a background item prefetcher; print,
      prune, save and test on their schedules (`--steps_per_dispatch` G runs
-     G steps between host events);
+     G steps between host events); every `--prob_freq` steps, after the
+     prune, grow points into the scan's holes (runtime/growing.py; with
+     the default opacity threshold 0.7, not `--prob_thresh`, as
+     run/train_ft.py calls it);
   4. final save, reference `.pth` export and test.
 `--profile_dir` writes a torch.profiler trace of steps [profile_start,
 profile_start + profile_steps).
 
-Not ported yet, refused at startup: growing (`--prob_freq` reached before
-`--maximum_step`, ROADMAP item 9), the MVS bootstrap (`--load_points 0`,
+Not ported yet, refused at startup: the MVS bootstrap (`--load_points 0`,
 item 14), `--bgmodel plane` (item 13), the semantic branch (item 11).
 """
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch
 
 from ..data import create_dataset
 from ..options.options import TrainOptions
+from ..runtime.growing import probe_and_grow
 from ..runtime.scene_model import SceneModel, batch_to_device
 from ..utils.metrics import psnr
 from ..utils.visualizer import Visualizer
@@ -75,11 +78,6 @@ class ItemPrefetcher:
 
 def check_flags(opt):
     """Refuse, before any work, what this driver does not port yet."""
-    maximum_step = opt.maximum_step or 100000
-    if opt.prob_freq > 0 and opt.prob_freq <= maximum_step:
-        raise NotImplementedError(
-            "point growing (--prob_freq > 0 within --maximum_step) is not "
-            "ported yet (ROADMAP.md, queue 1 item 9); pass --prob_freq 0")
     if str(getattr(opt, "bgmodel", "no")).endswith("plane"):
         raise NotImplementedError(
             "--bgmodel plane is not ported yet (ROADMAP.md, queue 1 item 13)")
@@ -155,6 +153,7 @@ def main(args=None):
     total_steps = int(model.step)
     maximum_step = opt.maximum_step or 100000
     rng = np.random.default_rng(1)
+    grow_rng = np.random.default_rng(2)     # the probe frames' seeds
     print(f"training from step {total_steps} to {maximum_step}")
     t_start = time.time()
     prefetcher = (ItemPrefetcher(dataset, n_threads=opt.n_threads)
@@ -166,7 +165,7 @@ def main(args=None):
     def next_event(step):
         nxt = maximum_step
         for freq in (opt.print_freq, opt.save_iter_freq, opt.save_point_freq,
-                     opt.prune_iter, opt.test_freq):
+                     opt.prune_iter, opt.prob_freq, opt.test_freq):
             if freq and freq > 0:
                 nxt = min(nxt, (step // freq + 1) * freq)
         return nxt
@@ -206,6 +205,9 @@ def main(args=None):
             if opt.prune_iter > 0 and total_steps % opt.prune_iter == 0 \
                     and total_steps <= opt.prune_max_iter:
                 model.prune_points(opt.prune_thresh)
+            if opt.prob_freq > 0 and total_steps % opt.prob_freq == 0:
+                probe_and_grow(model, dataset, opt,
+                               int(grow_rng.integers(0, 2 ** 32)))
             if total_steps % opt.save_iter_freq == 0:
                 model.save_checkpoint(total_steps)
             if opt.save_point_freq > 0 and \

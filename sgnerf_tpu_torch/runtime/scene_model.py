@@ -5,8 +5,9 @@ Counterpart of `sgnerf_tpu/runtime/scene_model.py` for one device:
 checkpoint resume (`{iter}_net_ray_marching.{npz,pth}`, resume_iter
 latest|best|N), the point bootstrap from the dataset's init points
 (`setup_from_points`), the train step (`optimize`, `optimize_multi`),
-prune with grid rebuild, checkpoint save and `.pth` export, and the chunked
-full-frame render. Growing and the sharded paths come with later slices.
+prune and grow with grid rebuild (growing's probes: runtime/growing.py),
+checkpoint save and `.pth` export, and the chunked full-frame render. The
+sharded paths come with later slices.
 
 The device is `device` when given, else `--gpu_ids` (options.py
 `device_from_opt`); nothing probes the machine, so a CUDA run on a machine
@@ -30,8 +31,8 @@ from ..models.checkpoint_io import (convert_reference_checkpoint,
                                     unpack_embedding_modes)
 from ..models.params import params_from_jax, params_to_jax
 from ..models.point_cloud import (NeuralPointCloud, build_grid,
-                                  grid_spec_for_cloud, make_point_cloud,
-                                  prune as prune_cloud)
+                                  grid_spec_for_cloud, grow as grow_cloud,
+                                  make_point_cloud, prune as prune_cloud)
 from ..models.renderer import attribute_table, render_rays
 from ..models.train import (TrainState, adam_init, create_train_state,
                             train_step, train_step_multi, trained_fields)
@@ -265,6 +266,30 @@ class SceneModel:
         cloud = prune_cloud(self.cloud, thresh)
         print(f"prune: {int(self.cloud.n_active)} -> "
               f"{int(cloud.n_active)} points")
+        self._rebuild(cloud)
+
+    def grow_points(self, new_xyz, new_embedding, new_conf, new_color,
+                    new_dir):
+        """Add host arrays of new points into the cloud's free slots. When
+        they do not fit, the live rows are first re-allocated on the host
+        at _capacity_for(n_active + G), every per-point field carried (the
+        JAX re-allocation keeps only the five grown ones). Then rebuild the
+        grid."""
+        cloud = self.cloud
+        need = int(cloud.n_active) + len(new_xyz)
+        if need > cloud.capacity:
+            old = cloud.to_arrays()
+            act = old.pop("active")
+            live = {f: a[act] for f, a in old.items()
+                    if f not in ("n_active", "Rw2c")}
+            cloud = make_point_cloud(
+                Rw2c=old["Rw2c"], num_classes=old["label_prob"].shape[1],
+                sem_dim=old["sem_embedding"].shape[1],
+                capacity=self._capacity_for(need), device=self.device,
+                **live)
+        cloud = grow_cloud(cloud, new_xyz, new_embedding, new_conf,
+                           new_color, new_dir)
+        print(f"grow: +{len(new_xyz)} -> {int(cloud.n_active)} points")
         self._rebuild(cloud)
 
     def _rebuild(self, cloud: NeuralPointCloud):

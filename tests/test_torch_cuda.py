@@ -1,11 +1,11 @@
-"""Kernels K1-K6 against their plain PyTorch versions on the card.
+"""Kernels K1-K7 against their plain PyTorch versions on the card.
 
 Marked `cuda`: each test skips where torch.cuda.is_available() is false
 (CUDA kernels have no CPU mode). On a machine with a card:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 (`tests/conftest.py` sets up jax, which this file does not use.)
 The binding comparison at the main path's shapes is chip_smoke.py's
-phases 5, 7 and 12; these run the same checks at small shapes (odd M,
+phases 5, 7, 12 and 14; these run the same checks at small shapes (odd M,
 masked rows, K and SR that do not divide the kernels' tiles), plus
 determinism and the wrappers' refusals."""
 import numpy as np
@@ -17,6 +17,9 @@ from sgnerf_tpu_torch.ops.fused_agg import (
     fused_block1_alpha_color, fused_block1_alpha_color_march,
     fused_block1_alpha_color_march_plain, fused_block1_alpha_color_plain,
     fused_block1_alpha_plain, color_tail_plain, march_tail_plain)
+from sgnerf_tpu_torch.ops.pallas_gather import (gather_rows_pallas,
+                                                gather_rows_staged,
+                                                sorted_segment_sum)
 from sgnerf_tpu_torch.ops.fused_knn import (fused_knn_select,
                                             fused_knn_select_plain,
                                             fused_knn_select_tiled,
@@ -327,3 +330,68 @@ def test_color_wrappers_refuse_mixed_devices(dev):
     with pytest.raises(ValueError):
         fused_knn_select_tiled(rows, inv.cpu(), delta, ok, 0.0, C=64, K=8,
                                T=64, U=16)
+
+
+# ROW x itemsize: 16, 80, 128 and 640 B take 16-byte vectors; 6, 20 and 36 B
+# the 2- and 4-byte paths
+GATHER_ROWS = [(torch.int16, 8), (torch.float32, 20), (torch.int16, 64),
+               (torch.int16, 320), (torch.int16, 3), (torch.float32, 5),
+               (torch.int16, 18)]
+
+
+def _gather_inputs(dev, dtype, row, T=3001, shape=(997,)):
+    g = torch.Generator(device=dev).manual_seed(row)
+    if dtype.is_floating_point:
+        table = torch.randn(T, row, generator=g, device=dev).to(dtype)
+    else:
+        table = torch.randint(-30000, 30000, (T, row), generator=g,
+                              device=dev).to(dtype)
+    idx = torch.randint(0, T, shape, generator=g, device=dev,
+                        dtype=torch.int32)
+    return table, idx
+
+
+@pytest.mark.parametrize("wave", [1, 16, 32])
+@pytest.mark.parametrize("dtype,row", GATHER_ROWS)
+def test_k7_and_staged_equal_index_select(dev, dtype, row, wave):
+    table, idx = _gather_inputs(dev, dtype, row, shape=(31, 33))
+    ref = table.index_select(0, idx.reshape(-1).long()).reshape(31, 33, row)
+    n = gather_rows_pallas.launches
+    got = gather_rows_pallas(table, idx, wave=wave)
+    assert gather_rows_pallas.launches == n + 1
+    assert torch.equal(got, ref)
+    if row * table.element_size() % 16:
+        with pytest.raises(ValueError, match="16 bytes"):
+            gather_rows_staged(table, idx, wave=wave)
+        return
+    n = gather_rows_staged.launches
+    got = gather_rows_staged(table, idx, wave=wave)
+    torch.cuda.synchronize()
+    assert gather_rows_staged.launches == n + 1
+    assert torch.equal(got, ref)
+
+
+def test_k7_unaligned_table_takes_the_narrow_path(dev):
+    """A table view one element into its storage: no 16-byte vectors."""
+    base, idx = _gather_inputs(dev, torch.int16, 64)
+    table = base.reshape(-1)[1:1 + 3000 * 64].reshape(3000, 64)
+    idx = idx.clamp_max(2999)
+    assert torch.equal(gather_rows_pallas(table, idx),
+                       table.index_select(0, idx.long()))
+
+
+def test_k7_backward_is_deterministic_and_matches_index_add(dev):
+    table, idx = _gather_inputs(dev, torch.float32, 40, T=500,
+                                shape=(20000,))
+    g = torch.randn(20000, 40, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    grads = []
+    for _ in range(2):
+        t = table.clone().requires_grad_(True)
+        gather_rows_pallas(t, idx).backward(g)
+        grads.append(t.grad)
+    assert torch.equal(grads[0], grads[1])
+    ref = torch.zeros_like(table).index_add_(0, idx.long(), g)
+    assert float((grads[0] - ref).abs().max()) <= 1e-6 * max(
+        1.0, float(ref.abs().max()))
+    assert torch.equal(sorted_segment_sum(idx, g, 500), grads[0])

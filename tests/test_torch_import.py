@@ -21,6 +21,8 @@ names = [m.name for m in pkgutil.walk_packages(sgnerf_tpu_torch.__path__,
 for n in names:
     importlib.import_module(n)
 assert len(names) >= 20, names
+for want in ("ops.pallas_gather", "runtime.growing", "dev.probe_gather"):
+    assert "sgnerf_tpu_torch." + want in names, want
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "triton", "sgnerf_tpu",
                                     "bench"))
@@ -152,8 +154,11 @@ def test_scene_model_device_comes_from_gpu_ids():
     ["--scene_shards", "2"],
     ["--ray_shards", "4"],
     ["--knn_mode", "approx"],
-    ["--gather_vjp", "sorted"],
+    ["--gather_vjp", "f32"],
     ["--gather_round", "stochastic"],
+    ["--gather_vjp", "spread"],
+    ["--gather_vjp", "raydedup"],
+    ["--gather_vjp", "batchdedup"],
 ])
 def test_flags_outside_the_slice_raise(flags):
     from sgnerf_tpu_torch.options import configs_from_opt

@@ -426,7 +426,7 @@ def test_train_ft_cli_runs_and_writes_checkpoints(scans, tmp_path):
     assert (tmp_path / "prof" / "train_ft_2.json").exists()
 
 
-@pytest.mark.parametrize("flags", [["--prob_freq", "5"],
+@pytest.mark.parametrize("flags", [["--semantic_guidance", "1"],
                                    ["--bgmodel", "plane"],
                                    ["--predict_semantic", "1"],
                                    ["--gather_dtype", "bfloat16"]])
