@@ -20,7 +20,11 @@ fine-tune train step (the flags of scene0113_00_default.sh). Phases:
      rays rendered with the kernel path and the un-fused path must agree;
   5. K1 and K2 against their plain versions on the inputs captured from
      one chunk of that frame (K1 ids equal; K2 within tolerance in f32
-     and bf16), timed with CUDA events;
+     and bf16), timed with CUDA events; K2's bound in each mode against
+     the unit it runs on (bf16: the bf16 tensor cores; f32: three TF32
+     products), the cuBLAS time of block1's bf16 products at the chunk's
+     shape as a yardstick, K2's registers, shared memory and blocks an
+     SM, and the count of tensor-core instructions in its SASS;
   6. the train step at full width (1024 random rays of the phase-4 camera,
      seeded target colours): 8 SceneModel.optimize steps with the counters
      reset just before; K2 and K3 must launch once a step, K1 never (f32
@@ -128,9 +132,10 @@ LOSS_RTOL = 1e-5
 GATHER_BWD_RTOL = 1e-6
 TRAIN_STEPS = 8
 FUSED_COLOR_STEPS = 3
-# the card's peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, FP32 FLOP/s
-# outside the tensor cores
+# the card's peaks (NVIDIA H100 SXM data sheet, dense): HBM bytes/s, FP32
+# FLOP/s outside the tensor cores, bf16 and TF32 FLOP/s on the tensor cores
 HBM_BPS, F32_FLOPS = 3.35e12, 67e12
+BF16_FLOPS, TF32_FLOPS = 989e12, 495e12
 
 TEST_DEFAULT_FLAGS = [
     "--name", "smoke", "--checkpoints_dir", os.path.join(REPO, "build"),
@@ -235,9 +240,12 @@ def cuda_ms(fn, reps=10):
 def bound(nbytes, flops, peak_flops):
     """(least ms the card could take, what bounds it): the bytes the
     function must move over the HBM rate against its operations over the
-    peak rate for their type."""
+    peak rate for their type. flops/peak_flops may be lists, one entry per
+    unit the operations run on (their times add)."""
+    if not isinstance(flops, (list, tuple)):
+        flops, peak_flops = [flops], [peak_flops]
     t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = flops / peak_flops * 1e3
+    t_ops = sum(f / p for f, p in zip(flops, peak_flops)) * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops
             else (t_ops, "operations"))
 
@@ -249,6 +257,18 @@ def nbytes(*tensors):
 def mlp_fma_per_row(block1):
     """FMAs of one neighbour row through block1 (one product per layer)."""
     return sum(l_["w"].shape[0] * l_["w"].shape[1] for l_ in block1)
+
+
+def block1_ops(block1, rows, bf16):
+    """([FLOP on the tensor cores, FLOP on the CUDA cores], [their peaks],
+    the tensor-core unit) of K2's tile body for `rows` neighbour rows: the
+    block1 products in bf16, or as three tf32 products (3xTF32) in f32
+    mode; the alpha head and the K-sum (2 C FMA a row) in f32."""
+    C = block1[0]["w"].shape[1]
+    mm = 2.0 * rows * mlp_fma_per_row(block1)
+    if bf16:
+        return [mm, 4.0 * rows * C], [BF16_FLOPS, F32_FLOPS], "bf16 tensor"
+    return [3 * mm, 4.0 * rows * C], [TF32_FLOPS, F32_FLOPS], "3xTF32 tensor"
 
 
 class Tee(io.TextIOBase):
@@ -632,16 +652,72 @@ def phase5_k2(captured, launches):
     rows = feat.shape[0] * feat.shape[1]
     C = block1[0]["w"].shape[1]
     weights = [t for l_ in block1 + alpha for t in l_.values()]
-    bound_ms, bound_by = bound(
-        nbytes(feat, d, w, *weights) + feat.shape[0] * (C + 1) * 4,
-        2.0 * rows * (mlp_fma_per_row(block1) + C), F32_FLOPS)
-    log(f"phase 5: K2 bound {bound_ms:.3f} ms ({bound_by}, f32)")
+    in_bytes = nbytes(feat, d, w, *weights) + feat.shape[0] * (C + 1) * 4
+    bounds = {}
+    for bf16 in (True, False):
+        flops, peaks, unit = block1_ops(block1, rows, bf16)
+        bounds[bf16] = bound(in_bytes, flops, peaks)
+        log(f"phase 5: K2 bf16={bf16} bound {bounds[bf16][0]:.3f} ms "
+            f"({bounds[bf16][1]}: {flops[0] / 1e9:.0f} GFLOP on the {unit} "
+            f"cores at {peaks[0] / 1e12:.0f} TFLOP/s + the f32 head); "
+            f"kernel {errs[bf16][1]:.3f} ms = "
+            f"{bounds[bf16][0] / errs[bf16][1]:.1%} of it")
+    bound_ms, bound_by = bounds[main_bf16]
+    phase5_k2_yardsticks(args, kwargs)
     return {"name": "fused_block1_alpha", "route": "cuda",
             "source": "sgnerf_tpu_torch/csrc/fused_agg.cu",
             "replaces": "sgnerf_tpu/ops/fused_agg.py:724",
             "launches": launches["fused_block1_alpha"],
             "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def phase5_k2_yardsticks(args, kwargs):
+    """Phase 5: what judges K2's design beside its bound: cuBLAS's time for
+    block1's bf16 products at the chunk's shape (torch.matmul; no single
+    PyTorch call computes K2, so library_ms stays null), K2's registers,
+    shared memory and blocks an SM in each mode, and whether its SASS
+    holds tensor-core instructions."""
+    import torch
+    from sgnerf_tpu_torch.ops import _cuda
+    from sgnerf_tpu_torch.ops.fused_agg import fused_block1_alpha_resources
+    feat, d, _, block1, _ = args
+    rows = feat.shape[0] * feat.shape[1]
+    in0 = block1[0]["w"].shape[0]
+    with torch.inference_mode():
+        x = torch.randn(rows, in0, device=feat.device).to(torch.bfloat16)
+        ws = [l_["w"].to(torch.bfloat16) for l_ in block1]
+
+        def products():
+            h = x
+            for wl in ws:
+                h = torch.matmul(h, wl)
+            return h
+        t_mm = cuda_ms(products)
+        del x
+    log(f"phase 5: cuBLAS yardstick, block1's {len(ws)} bf16 products at "
+        f"the chunk's shape ({rows}, {in0}) x "
+        f"{[tuple(wl.shape) for wl in ws]} through torch.matmul: "
+        f"{t_mm:.3f} ms")
+    for bf16 in (True, False):
+        res = fused_block1_alpha_resources(
+            feat.shape[-1], kwargs["nf"], d.shape[-1], kwargs["df"],
+            block1[0]["w"].shape[1], bf16, feat.device)
+        log(f"phase 5: K2 bf16={bf16} resources: {res['registers']} "
+            f"registers a thread, {res['smem_bytes']} B of shared memory "
+            f"a block, {res['blocks_per_sm']} block(s) of 256 threads an SM")
+    lib = _cuda.build("fused_agg")
+    dump = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if os.path.exists(dump):
+        sass = subprocess.run([dump, "-sass", lib], capture_output=True,
+                              text=True).stdout
+        counts = {op: sass.count(op) for op in ("HGMMA", "HMMA")}
+        log(f"phase 5: K2 SASS ({os.path.basename(lib)}): tensor-core "
+            f"instructions {counts}")
+        assert counts["HGMMA"] + counts["HMMA"] > 0, counts
+    else:
+        log("phase 5: K2 SASS: cuobjdump not found, not checked")
 
 
 def phase9_11_frames(model, item, col, k1_host):
@@ -875,15 +951,17 @@ def phase12_k4_k6(paths):
         feat = args[0]
         block1, alpha, color = args[-3:]
         M, rows = feat.shape[0], feat.shape[0] * feat.shape[1]
-        C = block1[0]["w"].shape[1]
         weights = [t for l_ in block1 + alpha + color for t in l_.values()]
         out_bytes = M * 16 if key == "K4" else M // kwargs["SR"] * 16
-        fma = rows * (mlp_fma_per_row(block1) + C) + M * mlp_fma_per_row(
-            color)
+        # block1 on the tensor cores (K2's body), the colour head in f32
+        flops, peaks, unit = block1_ops(block1, rows,
+                                        bool(kwargs["bf16"]))
+        flops[1] += 2.0 * M * mlp_fma_per_row(color)
         bound_ms, bound_by = bound(
-            nbytes(*args[:-3], *weights) + out_bytes, 2.0 * fma, F32_FLOPS)
-        log(f"phase 12: {key} bound {bound_ms:.3f} ms ({bound_by}, f32: "
-            f"{fma / 1e9:.1f} G FMA); reruns bit-identical")
+            nbytes(*args[:-3], *weights) + out_bytes, flops, peaks)
+        log(f"phase 12: {key} bound {bound_ms:.3f} ms ({bound_by}: "
+            f"{flops[0] / 1e9:.0f} GFLOP on the {unit} cores + "
+            f"{flops[1] / 1e9:.1f} GFLOP in f32); reruns bit-identical")
         records[key] = {
             "name": entry, "route": "cuda",
             "source": "sgnerf_tpu_torch/csrc/fused_agg_color.cu",

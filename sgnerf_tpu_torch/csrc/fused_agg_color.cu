@@ -22,27 +22,31 @@
 //   writes (M/SR, 4) [sum_s op_s T_s rgb_s | T_{SR-1} a_{SR-1}].
 // bf16 mode rounds every colour-matmul input (the reduced features, the
 // PE values, the hidden activations, the weights) to bf16 and accumulates
-// in f32, as the reference's `_dot_mm`; f32 mode is IEEE f32 FMA (no TF32,
-// no fast math).
+// in f32, as the reference's `_dot_mm`; in f32 mode the colour head is
+// IEEE f32 FMA (no fast math) and block1 is K2's 3xTF32.
 //
-// What bounds them on an H100: arithmetic, as K2. The colour MLP adds
-// (C + 6 vf) x 128 + 2 x 128 x 128 + 128 x 3 = 68,992 FMA a point at the
-// canonical config to K2's ~1.1M (8 neighbour rows), ~6%; the fusion keeps
-// the (M, C+1) reduced rows (and, for K5, every per-sample tensor of the
-// march) out of device memory. Design: K4 is K2's block (64 neighbour rows
-// = 64/K points) followed, on the tile's reduced rows kept in shared
-// memory, by the colour layers as small dense products: the thread
-// c + N g (N = the layer's width) owns column c for rows g, g + 256/N, ...,
-// with the weights staged through K2's 32-row tile. K5 gives each block
-// whole rays (max(1, (64/K) / SR) of them): it walks the rays' points in
-// K2-sized sub-tiles, keeps [alpha | rgb] of every point in shared memory,
-// then one thread marches each ray. This is the simple, right first
-// version on CUDA cores; tensor cores are later work.
+// What bounds them on an H100: block1's products, as K2. The colour MLP
+// adds (C + 6 vf) x 128 + 2 x 128 x 128 + 128 x 3 = 68,992 FMA a point at
+// the canonical config to K2's ~1.1M (8 neighbour rows), ~6%; the fusion
+// keeps the (M, C+1) reduced rows (and, for K5, every per-sample tensor of
+// the march) out of device memory. Design: K4 is K2's block (128 neighbour
+// rows = 128/K points, K2's tile body on the tensor cores, the same packed
+// weights) followed, on the tile's reduced rows kept in shared memory past
+// the body's staging, by the colour layers as small dense f32 products on
+// the CUDA cores: the thread c + N g (N = the layer's width) owns column c
+// for rows g, g + 256/N, ..., with the weights staged through a 32-row
+// tile in the body's dead region. K5 gives each block whole rays
+// (max(1, (128/K) / SR) of them): it walks the rays' points in K2-sized
+// sub-tiles, keeps [alpha | rgb] of every point in shared memory past the
+// body's region, then one thread marches each ray. The colour heads are
+// the simple, right first version; their tensor cores are later work.
 #include "fused_agg_body.cuh"
 
 using namespace sgnerf_agg;
 
 namespace {
+
+constexpr int kTileK = 32;  // colour weight rows staged per shared tile
 
 // y[t * ldy + n] = act(sum_k x[t * ldx + k] W[k * N + n] + b[n]) for
 // t < rows, n < N <= kThreads; W is row-major (k_in, N) in global memory,
@@ -142,36 +146,67 @@ __device__ void color_head(const float* red, int n, const float* __restrict__ vd
   }
 }
 
-__device__ __forceinline__ float* wtile_of(float* smem, int in0, int C) {
-  const int lda = in0 > C ? in0 : C;
-  return smem + kRows * lda + kRows * C;
+// Byte offsets in a K4/K5 block's shared memory past the body's head:
+// the colour scratch and its weight tile over the body's dead region, the
+// reduced rows and logits past the body's staging (the K-sum writes them
+// while it reads the staging), K5's per-point [alpha | rgb] past all of it.
+struct ColorLayout {
+  size_t wtile, red, logits, pts, total;
+};
+
+__host__ __device__ inline size_t align16(size_t b) { return (b + 15) / 16 * 16; }
+
+__host__ __device__ inline ColorLayout color_layout(int F, int nf, int Dd,
+                                                    int df, int C, int K,
+                                                    int vf, int Nh, bool bf16,
+                                                    int march_pts) {
+  const BodyLayout B = body_layout(block1_in(F, nf, Dd, df), F + Dd + 2, C, bf16);
+  const size_t tm = kRows / K;
+  const size_t scratch = align16(tm * (C + 6 * vf + 2 * Nh) * sizeof(float));
+  const size_t wtile = static_cast<size_t>(kTileK) * C * sizeof(float);
+  ColorLayout L;
+  L.wtile = kHeadBytes + scratch;
+  L.red = kHeadBytes + align16(B.staging_bytes > scratch + wtile
+                                   ? B.staging_bytes
+                                   : scratch + wtile);
+  L.logits = L.red + align16(tm * (C + 1) * sizeof(float));
+  const size_t end = L.logits + align16(tm * 3 * sizeof(float));
+  const size_t body_end = kHeadBytes + B.region_bytes;
+  L.pts = end > body_end ? end : body_end;
+  L.total = L.pts + static_cast<size_t>(march_pts) * 4 * sizeof(float);
+  return L;
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <bool BF16>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 fused_agg_color_kernel(const float* __restrict__ feat,
                        const float* __restrict__ dist,
                        const float* __restrict__ wgt,
                        const float* __restrict__ vd,
-                       const float* __restrict__ W,
+                       const void* __restrict__ Wp,
                        const float* __restrict__ Bias, int n_layers,
                        const float* __restrict__ wa,
                        const float* __restrict__ ba,
                        const float* __restrict__ CW,
                        const float* __restrict__ CB, int n_clayers, int Nh,
                        int M, int K, int F, int nf, int Dd, int df, int C,
-                       int vf, int bf16, size_t body_floats,
-                       float* __restrict__ out) {
-  extern __shared__ float smem[];
-  const int in0 = F + 2 * F * nf + 2 * Dd * df;
+                       int vf, float* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const ColorLayout CL =
+      color_layout(F, nf, Dd, df, C, K, vf, Nh, BF16, 0);
+  if (threadIdx.x == 0) ring_init(smem);
+  __syncthreads();
+  uint32_t ring_it = 0;
   const int tm = kRows / K;
   const int m0 = blockIdx.x * tm;
   const int n = min(tm, M - m0);
-  float* red = smem + body_floats;        // tm x (C+1): reduced rows
-  float* logits = red + tm * (C + 1);     // tm x 3
-  block1_alpha_tile(feat, dist, wgt, W, Bias, n_layers, wa, ba, K, F, nf, Dd,
-                    df, C, bf16, m0, n, smem, red, C + 1);
-  color_head(red, n, vd, m0, C, vf, CW, CB, n_clayers, Nh, bf16, smem,
-             wtile_of(smem, in0, C), logits);
+  float* red = reinterpret_cast<float*>(smem + CL.red);        // tm x (C+1)
+  float* logits = reinterpret_cast<float*>(smem + CL.logits);  // tm x 3
+  block1_alpha_tile<BF16>(feat, dist, wgt, Wp, Bias, n_layers, wa, ba, K, F,
+                          nf, Dd, df, C, m0, n, smem, ring_it, red, C + 1);
+  color_head(red, n, vd, m0, C, vf, CW, CB, n_clayers, Nh, BF16,
+             reinterpret_cast<float*>(smem + kHeadBytes),
+             reinterpret_cast<float*>(smem + CL.wtile), logits);
   for (int idx = threadIdx.x; idx < n * 4; idx += kThreads) {
     const int t = idx >> 2, c = idx & 3;
     out[static_cast<size_t>(m0 + t) * 4 + c] =
@@ -179,38 +214,45 @@ fused_agg_color_kernel(const float* __restrict__ feat,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <bool BF16>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 fused_agg_march_kernel(const float* __restrict__ feat,
                        const float* __restrict__ dist,
                        const float* __restrict__ wgt,
                        const float* __restrict__ vd,
                        const float* __restrict__ ray_dist,
                        const float* __restrict__ ray_valid,
-                       const float* __restrict__ W,
+                       const void* __restrict__ Wp,
                        const float* __restrict__ Bias, int n_layers,
                        const float* __restrict__ wa,
                        const float* __restrict__ ba,
                        const float* __restrict__ CW,
                        const float* __restrict__ CB, int n_clayers, int Nh,
                        int M, int K, int F, int nf, int Dd, int df, int C,
-                       int vf, int SR, int rays_per_block, int bf16,
-                       size_t body_floats, float* __restrict__ out) {
-  extern __shared__ float smem[];
-  const int in0 = F + 2 * F * nf + 2 * Dd * df;
+                       int vf, int SR, int rays_per_block,
+                       float* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const ColorLayout CL =
+      color_layout(F, nf, Dd, df, C, K, vf, Nh, BF16, 0);
+  if (threadIdx.x == 0) ring_init(smem);
+  __syncthreads();
+  uint32_t ring_it = 0;
   const int tm = kRows / K;
   const int ray0 = blockIdx.x * rays_per_block;
   const int rays = min(rays_per_block, M / SR - ray0);
   const int p0 = ray0 * SR, n_pts = rays * SR;
-  float* red = smem + body_floats;        // tm x (C+1): reduced rows
-  float* logits = red + tm * (C + 1);     // tm x 3
-  float* pts = logits + tm * 3;           // n_pts x 4: [alpha | rgb]
-  float* wtile = wtile_of(smem, in0, C);
+  float* red = reinterpret_cast<float*>(smem + CL.red);        // tm x (C+1)
+  float* logits = reinterpret_cast<float*>(smem + CL.logits);  // tm x 3
+  float* pts = reinterpret_cast<float*>(smem + CL.pts);  // n_pts x 4: [alpha | rgb]
+  float* scratch = reinterpret_cast<float*>(smem + kHeadBytes);
+  float* wtile = reinterpret_cast<float*>(smem + CL.wtile);
   for (int s0 = 0; s0 < n_pts; s0 += tm) {
     const int n = min(tm, n_pts - s0);
-    block1_alpha_tile(feat, dist, wgt, W, Bias, n_layers, wa, ba, K, F, nf,
-                      Dd, df, C, bf16, p0 + s0, n, smem, red, C + 1);
-    color_head(red, n, vd, p0 + s0, C, vf, CW, CB, n_clayers, Nh, bf16, smem,
-               wtile, logits);
+    block1_alpha_tile<BF16>(feat, dist, wgt, Wp, Bias, n_layers, wa, ba, K,
+                            F, nf, Dd, df, C, p0 + s0, n, smem, ring_it, red,
+                            C + 1);
+    color_head(red, n, vd, p0 + s0, C, vf, CW, CB, n_clayers, Nh, BF16,
+               scratch, wtile, logits);
     for (int idx = threadIdx.x; idx < n * 4; idx += kThreads) {
       const int t = idx >> 2, c = idx & 3;
       float v;
@@ -246,29 +288,28 @@ fused_agg_march_kernel(const float* __restrict__ feat,
   }
 }
 
-// Shared-memory floats of a K4/K5 block beyond the body: the reduced rows
-// and the logits of one tile (+ K5's per-point [alpha | rgb]); 0 when a
-// shape does not fit (the colour scratch reuses the body's buffers A/B).
-size_t color_smem_floats(int K, int F, int nf, int Dd, int df, int C, int vf,
-                         int n_clayers, int Nh, int march_pts) {
-  const int in0 = block1_in(F, nf, Dd, df);
-  const int lda = in0 > C ? in0 : C;
-  const int tm = kRows / K;
-  const size_t scratch = static_cast<size_t>(tm) * (C + 6 * vf + 2 * Nh);
-  if (n_clayers < 1 || vf < 1 || vf > 30 || Nh < 3 || Nh > C ||
-      scratch > static_cast<size_t>(kRows) * (lda + C))
-    return 0;
-  const size_t total = body_smem_floats(in0, C) +
-                       static_cast<size_t>(tm) * (C + 4) +
-                       4 * static_cast<size_t>(march_pts);
-  return total * sizeof(float) > kMaxSmem ? 0 : total;
+// Bytes of shared memory of a K4/K5 block (march_pts: K5's points a
+// block); 0 when the shape does not fit one block.
+size_t color_smem_bytes(int K, int F, int nf, int Dd, int df, int C, int vf,
+                        int n_clayers, int Nh, bool bf16, int march_pts) {
+  if (n_clayers < 1 || vf < 1 || vf > 30 || Nh < 3 || Nh > C) return 0;
+  const size_t total =
+      color_layout(F, nf, Dd, df, C, K, vf, Nh, bf16, march_pts).total;
+  return total > kMaxSmem ? 0 : total;
 }
 
 bool agg_args_ok(int M, int K, int F, int nf, int Dd, int df, int C,
                  int n_layers) {
-  return !(K < 1 || K > kRows / 2 || C < 32 || C > kMaxC || C % 32 != 0 ||
+  return !(K < 1 || K > 32 || C < 32 || C > kMaxC || C % 32 != 0 ||
            n_layers < 1 || M < 0 || F < 1 || nf < 1 || Dd < 1 || df < 1 ||
            nf > 30 || df > 30);
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 }  // namespace
@@ -279,16 +320,17 @@ const char* sgnerf_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// K4. feat (M,K,F), dist (M,K,Dd), wgt (M,K), vd (M,3) f32; W/Bias/wa/ba as
-// K2 (fused_agg.cu); CW: the n_clayers colour weights, (C + 6 vf, Nh),
-// (Nh, Nh)..., (Nh, 3) row-major and concatenated (a single layer is
-// (C + 6 vf, 3)); CB their biases, concatenated -> out (M, 4) f32
-// [alpha | raw rgb]. Needs 1 <= K <= 32, C % 32 == 0, C <= 256,
-// 3 <= Nh <= C and a block within 227 KB of shared memory (K >= 2 at the
-// canonical widths). Launches on `stream`; returns cudaGetLastError().
+// K4. feat (M,K,F), dist (M,K,Dd), wgt (M,K), vd (M,3) f32; Wp/Bias/wa/ba
+// as K2 (fused_agg.cu: Wp packed by `pack_block1` for this mode); CW: the
+// n_clayers colour weights, (C + 6 vf, Nh), (Nh, Nh)..., (Nh, 3) row-major
+// and concatenated (a single layer is (C + 6 vf, 3)); CB their biases,
+// concatenated -> out (M, 4) f32 [alpha | raw rgb]. Needs 1 <= K <= 32,
+// C % 32 == 0, C <= 256, 3 <= Nh <= C and a block within 227 KB of shared
+// memory (K >= 3 at the canonical widths). Launches on `stream`; returns
+// cudaGetLastError().
 int fused_block1_alpha_color(const float* feat, const float* dist,
                              const float* wgt, const float* vd,
-                             const float* W, const float* Bias, int n_layers,
+                             const void* Wp, const float* Bias, int n_layers,
                              const float* wa, const float* ba,
                              const float* CW, const float* CB, int n_clayers,
                              int Nh, int M, int K, int F, int nf, int Dd,
@@ -296,21 +338,20 @@ int fused_block1_alpha_color(const float* feat, const float* dist,
                              cudaStream_t stream) {
   if (!agg_args_ok(M, K, F, nf, Dd, df, C, n_layers))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t floats =
-      color_smem_floats(K, F, nf, Dd, df, C, vf, n_clayers, Nh, 0);
-  if (floats == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = color_smem_bytes(K, F, nf, Dd, df, C, vf, n_clayers,
+                                       Nh, bf16 != 0, 0);
+  if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return 0;
-  const size_t smem = floats * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      fused_agg_color_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  cudaError_t e = bf16 ? allow_smem(fused_agg_color_kernel<true>, smem)
+                       : allow_smem(fused_agg_color_kernel<false>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int tm = kRows / K;
   const int blocks = (M + tm - 1) / tm;
-  fused_agg_color_kernel<<<blocks, kThreads, smem, stream>>>(
-      feat, dist, wgt, vd, W, Bias, n_layers, wa, ba, CW, CB, n_clayers, Nh,
-      M, K, F, nf, Dd, df, C, vf, bf16,
-      body_smem_floats(block1_in(F, nf, Dd, df), C), out);
+  auto kernel = bf16 ? fused_agg_color_kernel<true>
+                     : fused_agg_color_kernel<false>;
+  kernel<<<blocks, kThreads, smem, stream>>>(
+      feat, dist, wgt, vd, Wp, Bias, n_layers, wa, ba, CW, CB, n_clayers, Nh,
+      M, K, F, nf, Dd, df, C, vf, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -320,7 +361,7 @@ int fused_block1_alpha_color(const float* feat, const float* dist,
 // cudaGetLastError().
 int fused_block1_alpha_color_march(
     const float* feat, const float* dist, const float* wgt, const float* vd,
-    const float* ray_dist, const float* ray_valid, const float* W,
+    const float* ray_dist, const float* ray_valid, const void* Wp,
     const float* Bias, int n_layers, const float* wa, const float* ba,
     const float* CW, const float* CB, int n_clayers, int Nh, int M, int K,
     int F, int nf, int Dd, int df, int C, int vf, int SR, int bf16,
@@ -330,21 +371,21 @@ int fused_block1_alpha_color_march(
     return static_cast<int>(cudaErrorInvalidValue);
   const int tm = kRows / K;
   const int rays_per_block = tm / SR > 1 ? tm / SR : 1;
-  const size_t floats = color_smem_floats(K, F, nf, Dd, df, C, vf, n_clayers,
-                                          Nh, rays_per_block * SR);
-  if (floats == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = color_smem_bytes(K, F, nf, Dd, df, C, vf, n_clayers,
+                                       Nh, bf16 != 0, rays_per_block * SR);
+  if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return 0;
-  const size_t smem = floats * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      fused_agg_march_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  cudaError_t e = bf16 ? allow_smem(fused_agg_march_kernel<true>, smem)
+                       : allow_smem(fused_agg_march_kernel<false>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int n_rays = M / SR;
   const int blocks = (n_rays + rays_per_block - 1) / rays_per_block;
-  fused_agg_march_kernel<<<blocks, kThreads, smem, stream>>>(
-      feat, dist, wgt, vd, ray_dist, ray_valid, W, Bias, n_layers, wa, ba, CW,
-      CB, n_clayers, Nh, M, K, F, nf, Dd, df, C, vf, SR, rays_per_block, bf16,
-      body_smem_floats(block1_in(F, nf, Dd, df), C), out);
+  auto kernel = bf16 ? fused_agg_march_kernel<true>
+                     : fused_agg_march_kernel<false>;
+  kernel<<<blocks, kThreads, smem, stream>>>(
+      feat, dist, wgt, vd, ray_dist, ray_valid, Wp, Bias, n_layers, wa, ba,
+      CW, CB, n_clayers, Nh, M, K, F, nf, Dd, df, C, vf, SR, rays_per_block,
+      out);
   return static_cast<int>(cudaGetLastError());
 }
 

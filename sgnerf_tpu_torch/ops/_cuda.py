@@ -40,6 +40,9 @@ _SIGNATURES = {
         # out, stream
         "fused_block1_alpha": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
                                _I, _I, _I, _I, _I, _P, _P],
+        # F, nf, Dd, df, C, bf16, *regs, *smem_bytes, *blocks_per_sm
+        "fused_block1_alpha_occupancy": [_I, _I, _I, _I, _I, _I, _P, _P,
+                                         _P],
     },
     "fused_agg_color": {
         # feat, d, w, vd, W, b, n_layers, wa, ba, CW, CB, n_clayers, Nh, M,

@@ -19,7 +19,11 @@ and has no gradient.
 
 The kernels compute PE in the reference's interleaved layout against the
 unpermuted block1 weights; the TPU kernels' frequency-major layout with
-permuted W1 rows was a lane-layout device of that chip.
+permuted W1 rows was a lane-layout device of that chip. K2, K4 and K5 run
+block1's products on the tensor cores (bf16, or 3xTF32 in f32 mode) from
+weights `pack_block1` lays out for their shared-memory ring (bf16
+k-slices, or tf32 hi/lo pairs; `tf32_rna` is the card's rounding), packed
+again only when the weights change.
 
 Derivatives follow JAX's conventions, so CPU autograd, the kernels and
 the JAX package agree: leaky_relu' is 1 at exactly 0 (jnp.where(x >= 0)),
@@ -223,8 +227,14 @@ def _check_cuda(ts, feat, d, block1, K, nf, df, what, max_k=64, max_in=None):
         raise ValueError(f"{what}: every tensor must lie on one CUDA device "
                          "(or all on the CPU)")
     Fd, Dd = feat.shape[-1], d.shape[-1]
-    C = block1[0]["w"].shape[1]
     in0 = Fd + 2 * Fd * nf + 2 * Dd * df
+    return _check_block1(block1, in0, what, K, max_k, max_in), in0
+
+
+def _check_block1(block1, in0, what, K=1, max_k=64, max_in=None):
+    """Shapes the kernels take: block1 (in0, C) then (C, C) layers, C % 32
+    == 0, C <= 256, 1 <= K <= max_k; returns C."""
+    C = block1[0]["w"].shape[1]
     if block1[0]["w"].shape[0] != in0 or any(
             tuple(l_["w"].shape) != (C, C) for l_ in block1[1:]):
         raise ValueError(f"block1 must be ({in0},{C}) then ({C},{C}) layers")
@@ -233,7 +243,7 @@ def _check_cuda(ts, feat, d, block1, K, nf, df, what, max_k=64, max_in=None):
         raise ValueError(f"{what} needs C % 32 == 0, C <= 256, K <= {max_k}"
                          f", block1 input <= {max_in}; got C={C} K={K} "
                          f"in={in0}")
-    return C, in0
+    return C
 
 
 def _check_color(feat, vd, block1, color_branch, vf, extra=()):
@@ -260,19 +270,103 @@ def _check_color(feat, vd, block1, color_branch, vf, extra=()):
     return ts, Nh
 
 
-def _block1_args(block1, alpha_branch):
-    return (torch.cat([l_["w"].reshape(-1) for l_ in block1]),
-            torch.cat([l_["b"].reshape(-1) for l_ in block1]),
-            alpha_branch[0]["w"].reshape(-1).contiguous(),
+# The tile body's weight layout (csrc/fused_agg_body.cuh): per layer,
+# k-slices of SLICE_DEPTH input rows, each WGMMA_N output columns wide (the
+# columns past C zero) and made of 16-byte planes, each plane the 16 bytes
+# of every column in turn (wgmma's no-swizzle K-major layout). bf16: four
+# planes of 8 rows. f32: the tf32 hi planes of rows 0-3 and 4-7, then the
+# lo planes.
+SLICE_DEPTH = {True: 32, False: 8}
+WGMMA_N = 256
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to tf32 (10 mantissa bits), to nearest with ties
+    away from zero, as the card's cvt.rna.tf32.f32: the low 13 bits zero."""
+    b = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def pack_block1(block1: List[Dict[str, torch.Tensor]], in0: int,
+                bf16: bool):
+    """block1's weights in the tile body's layout for one mode, and its
+    biases: -> (packed weights, bf16 (bf16 mode) or float32 (tf32 hi/lo),
+    flat; biases (n_layers * C,) float32). The first layer's in0 rows are
+    padded with zero rows to a multiple of SLICE_DEPTH[bf16], the columns
+    with zeros to WGMMA_N."""
+    C = _check_block1(block1, in0, "pack_block1")
+    ks = SLICE_DEPTH[bf16]
+    parts = []
+    for layer in block1:
+        w = layer["w"].detach().to(torch.float32)
+        k = w.shape[0]
+        kp = -(-k // ks) * ks
+        wp = w.new_zeros(kp, WGMMA_N)
+        wp[:k, :C] = w
+        ws = wp.reshape(kp // ks, ks, WGMMA_N)          # (S, ks, N)
+        if bf16:
+            x = ws.reshape(-1, 4, 8, WGMMA_N).to(torch.bfloat16)
+        else:
+            hi = tf32_rna(ws)
+            x = torch.cat([hi, tf32_rna(ws - hi)], 1).reshape(-1, 4, 4,
+                                                             WGMMA_N)
+        parts.append(x.transpose(2, 3).reshape(-1))  # (S, plane, N, e)
+    bias = torch.cat([l_["b"].detach().reshape(-1) for l_ in block1])
+    return torch.cat(parts), bias.to(torch.float32).contiguous()
+
+
+_PACKED: dict = {}   # bf16 -> (weight tensors, their versions, packed, bias)
+
+
+def _packed_block1(block1, in0, bf16):
+    """pack_block1, kept while the same weight tensors hold the same values
+    (the same objects at the same version counts): the render calls K2
+    once a chunk with unchanged weights; an optimizer step bumps the
+    versions. Inference tensors keep no version count and are packed every
+    call."""
+    ts = tuple(t for l_ in block1 for t in (l_["w"], l_["b"]))
+    if any(t.is_inference() for t in ts):
+        return pack_block1(block1, in0, bf16)
+    versions = tuple(t._version for t in ts)
+    hit = _PACKED.get(bf16)
+    if (hit is not None and len(hit[0]) == len(ts)
+            and all(a is b for a, b in zip(hit[0], ts))
+            and hit[1] == versions):
+        return hit[2], hit[3]
+    packed, bias = pack_block1(block1, in0, bf16)
+    _PACKED[bf16] = (ts, versions, packed, bias)
+    return packed, bias
+
+
+def _alpha_args(alpha_branch):
+    return (alpha_branch[0]["w"].reshape(-1).contiguous(),
             alpha_branch[0]["b"].reshape(-1).contiguous())
+
+
+def fused_block1_alpha_resources(F: int, nf: int, Dd: int, df: int, C: int,
+                                 bf16: bool, device=None) -> Dict[str, int]:
+    """K2's registers a thread, shared memory a block (bytes) and resident
+    blocks an SM on the card, for feat width F, dist width Dd, PE
+    frequencies nf, df and width C."""
+    import ctypes
+    lib = _cuda.load("fused_agg")
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(device):
+        err = lib.fused_block1_alpha_occupancy(
+            F, nf, Dd, df, C, int(bf16), *(ctypes.byref(v) for v in vals))
+    _cuda.check(lib, err, "fused_block1_alpha_occupancy")
+    return dict(zip(("registers", "smem_bytes", "blocks_per_sm"),
+                    (v.value for v in vals)))
 
 
 def _launch_fwd(feat, d, w, block1, alpha_branch, K, nf, df, bf16):
     ts = _check(feat, d, w, block1, alpha_branch, K)
-    C, _ = _check_cuda(ts, feat, d, block1, K, nf, df, "fused_block1_alpha")
+    C, in0 = _check_cuda(ts, feat, d, block1, K, nf, df,
+                         "fused_block1_alpha")
     M, _, Fd = feat.shape
     Dd = d.shape[-1]
-    Wall, Ball, wa, ba = _block1_args(block1, alpha_branch)
+    Wall, Ball = _packed_block1(block1, in0, bf16)
+    wa, ba = _alpha_args(alpha_branch)
     feat, d, w = feat.contiguous(), d.contiguous(), w.contiguous()
     out = torch.empty((M, C + 1), dtype=torch.float32, device=feat.device)
     lib = _cuda.load("fused_agg")
@@ -295,10 +389,12 @@ def _launch_color(feat, d, w, vd, block1, alpha_branch, color_branch, K, nf,
     ts = _check(feat, d, w, block1, alpha_branch, K)
     cts, Nh = _check_color(feat, vd, block1, color_branch, vf,
                            () if march is None else march[:2])
-    C, _ = _check_cuda(ts + cts, feat, d, block1, K, nf, df, what, max_k=32)
+    C, in0 = _check_cuda(ts + cts, feat, d, block1, K, nf, df, what,
+                         max_k=32)
     M, _, Fd = feat.shape
     Dd = d.shape[-1]
-    Wall, Ball, wa, ba = _block1_args(block1, alpha_branch)
+    Wall, Ball = _packed_block1(block1, in0, bf16)
+    wa, ba = _alpha_args(alpha_branch)
     CW = torch.cat([l_["w"].reshape(-1) for l_ in color_branch])
     CB = torch.cat([l_["b"].reshape(-1) for l_ in color_branch])
     feat, d, w, vd = (t.detach().contiguous() for t in (feat, d, w, vd))

@@ -28,6 +28,10 @@ from sgnerf_tpu_torch.ops.fused_knn import (fused_knn_select,
 
 pytestmark = pytest.mark.cuda
 
+# K2's tolerances (chip_smoke.py K2_TOL): summation order in f32; a flipped
+# bf16 rounding of a product input in bf16
+K2_TOL = {False: dict(atol=1e-4, rtol=1e-4), True: dict(atol=2e-2, rtol=1e-2)}
+
 
 @pytest.fixture
 def dev():
@@ -81,17 +85,39 @@ def _agg_inputs(dev, M=500, K=8, F=32, Dd=6, C=256, n_layers=2):
             [{k: to(v) for k, v in l_.items()} for l_ in alpha])
 
 
+def _masks(shape, dev, seed, keep=0.7):
+    """A seeded mask: True on about `keep` of the entries."""
+    g = torch.Generator().manual_seed(seed)
+    return (torch.rand(shape, generator=g) < keep).to(dev)
+
+
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("K,n_layers", [(8, 2), (3, 1)])
-def test_k2_kernel_matches_plain(dev, bf16, K, n_layers):
-    args = _agg_inputs(dev, K=K, n_layers=n_layers)
+@pytest.mark.parametrize("M,K,C,n_layers,F,Dd", [
+    (501, 8, 256, 2, 32, 6),     # canonical widths, 284-deep first layer
+    (77, 3, 256, 1, 32, 6),      # K not dividing the 128-row tile
+    (1000, 1, 32, 3, 8, 3),      # 86-deep first layer, narrowest C
+    (130, 16, 160, 2, 16, 6),    # 172-deep first layer, C = 160
+    (37, 64, 256, 3, 32, 6),     # two points a tile
+    (300, 8, 160, 1, 20, 3),     # 170-deep first layer
+])
+def test_k2_kernel_matches_plain(dev, bf16, M, K, C, n_layers, F, Dd):
+    """Ragged M, K in {1, 3, 8, 16, 64}, C in {32, 160, 256}, 1-3 layers,
+    first-layer depths that are not multiples of 16, masked rows (w = 0)
+    and a whole masked point; a rerun gives the same bits."""
+    feat, d, w, block1, alpha = _agg_inputs(dev, M=M, K=K, F=F, Dd=Dd, C=C,
+                                            n_layers=n_layers)
+    w = w * _masks(w.shape, dev, seed=M)
+    w[M // 2] = 0.0
+    args = (feat, d, w, block1, alpha)
     n0 = fused_block1_alpha.launches
     fa, al = fused_block1_alpha(*args, K=K, nf=3, df=5, bf16=bf16)
     assert fused_block1_alpha.launches == n0 + 1
     rfa, ral = fused_block1_alpha_plain(*args, K=K, nf=3, df=5, bf16=bf16)
-    tol = dict(atol=2e-2, rtol=1e-2) if bf16 else dict(atol=1e-4, rtol=1e-4)
-    torch.testing.assert_close(fa, rfa, **tol)
-    torch.testing.assert_close(al, ral, **tol)
+    torch.testing.assert_close(fa, rfa, **K2_TOL[bf16])
+    torch.testing.assert_close(al, ral, **K2_TOL[bf16])
+    assert not fa[M // 2].any() and not al[M // 2].any()
+    again = fused_block1_alpha(*args, K=K, nf=3, df=5, bf16=bf16)
+    assert torch.equal(fa, again[0]) and torch.equal(al, again[1])
 
 
 # K3 tolerance vs its plain version, per output tensor, relative to the
@@ -113,7 +139,7 @@ def test_k3_kernel_matches_plain(dev, bf16, M, K, n_layers):
     """Odd M (a ragged last tile), masked rows (w = 0), K not dividing the
     32-row tile, 1-3 block1 layers."""
     feat, d, w, block1, alpha = _agg_inputs(dev, M=M, K=K, n_layers=n_layers)
-    w = w * (torch.rand(w.shape, device=dev) < 0.7)
+    w = w * _masks(w.shape, dev, seed=M)
     C = block1[0]["w"].shape[1]
     g = torch.randn(M, C + 1, device=dev)
     n0 = fused_block1_alpha_bwd.launches
@@ -166,9 +192,6 @@ def test_wrappers_refuse_mixed_devices(dev):
         fused_knn_select(rows, delta.cpu(), ok, 0.0, C=64, K=8)
 
 
-# K2's tolerances (chip_smoke.py K2_TOL): summation order in f32; a flipped
-# bf16 rounding of a product input in bf16
-K2_TOL = {False: dict(atol=1e-4, rtol=1e-4), True: dict(atol=2e-2, rtol=1e-2)}
 # bf16 mode, K4 vs the plain colour head on the K2 kernel's reduced rows
 # (K4 computes them with K2's tile body) and K5 vs the plain march on K4's
 # outputs (chip_smoke.py COLOR_SOUND_TOL): only the colour layers'
@@ -197,7 +220,7 @@ def _color_inputs(dev, M, K, C=256, vf=4, Nh=128, n_layers=4):
     """K4/K5 inputs: K2's, with masked rows (w = 0) and a whole masked
     point, unit view directions and a colour head of n_layers."""
     feat, d, w, block1, alpha = _agg_inputs(dev, M=M, K=K, C=C)
-    w = w * (torch.rand(w.shape, device=dev) < 0.7)
+    w = w * _masks(w.shape, dev, seed=M)
     w[0] = 0.0
     g = torch.Generator().manual_seed(1)
     vd = torch.randn(M, 3, generator=g)
