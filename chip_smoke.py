@@ -24,15 +24,31 @@ fine-tune train step (the flags of scene0113_00_default.sh). Phases:
      the unit it runs on (bf16: the bf16 tensor cores; f32: three TF32
      products), the cuBLAS time of block1's bf16 products at the chunk's
      shape as a yardstick, K2's registers, shared memory and blocks an
-     SM, and the count of tensor-core instructions in its SASS;
+     SM, and the count of tensor-core instructions in its SASS; then K2's
+     f32 mode at tests/test_fused_agg.py's inputs against that file's own
+     limits (features 3e-5, alpha 3e-6, aggregate()'s decoded output
+     3e-6);
   6. the train step at full width (1024 random rays of the phase-4 camera,
      seeded target colours): 8 SceneModel.optimize steps with the counters
      reset just before; K2 and K3 must launch once a step, K1 never (f32
      cache: exact top-k), the loss must be finite and fall. Then one step's
      losses and gradients with the kernels and with the un-fused plain path,
-     from the same state and noise, must agree;
+     from the same state and noise, must agree, the un-fused block1 taking
+     the kernel forward's LeakyReLU branch at the few activations where its
+     own lies on the other side of zero (each within K2_TOL; the gradients
+     on its own branches are logged too);
   7. K3 against its plain version on the arguments and cotangent captured
-     from phase 6's first step, in f32 and bf16, timed with CUDA events;
+     from phase 6's first step, in f32 and bf16, timed with CUDA events
+     (the plain version takes the LeakyReLU branch of the forward that
+     ran, K3a's, where its own recompute lies on the other one; K3a's
+     activations summed as K2 sums them must equal K2's features bit for
+     bit); each of its three launches (K3a recompute, K3b data gradients, K3c
+     weight gradients) against its plain statement and timed alone; K3's
+     bound (block1's three passes of products at the tensor cores' rate
+     for their type, the alpha head on the FP32 cores), the four backward products by
+     torch.matmul (f32, TF32 off) as a yardstick, K3's registers, shared
+     memory and blocks an SM, HGMMA and no HMMA in K3b's SASS, and a
+     full-shape rerun that gives the same bits;
   8. the training CLI, sgnerf_tpu_torch.run.train_ft.main, on a synthetic
      ScanNet export written under build/ (640x480 views inside the room,
      the room scan as the resumed checkpoint): 10 steps, then the
@@ -121,10 +137,23 @@ COLOR_SOUND_TOL = {"K4": dict(atol=2e-3, rtol=0.0),
                    "K5": dict(atol=1e-6, rtol=0.0)}
 # render of 512 rays, kernel path vs un-fused path, f32 compute
 RENDER_ATOL = 1e-4
-# K3 vs its plain version, per output tensor, relative to the plain
+# K3 vs its plain version (f32), per output tensor, relative to the plain
 # tensor's largest magnitude: summation order (f32); a flipped bf16
-# rounding of a product input (bf16)
+# rounding of a product input (bf16). K3 is the gradient of the forward
+# that ran (K3a's activations are K2's bit for bit); the plain K3 takes
+# that forward's LeakyReLU branch at the few activations (3 of 100M at the
+# train step) where its own recompute lies on the other one, each within
+# K2_TOL of it (`fused_block1_alpha_bwd_plain(branches=)`; phase 7 logs
+# the plain K3 on its own branches too)
 K3_TOL = {False: 2e-3, True: 3e-2}
+# K3's launches vs their plain statements on the same inputs: K3a's saved
+# activations as K2 (K2_TOL); K3b's data gradients as K3 (K3_TOL, relative);
+# K3c's weight gradients, IEEE f32 products of the same operands on both
+# sides, relative to the largest magnitude: the summation order only
+K3C_RTOL = 1e-5
+# tests/test_fused_agg.py's own limits for K2's f32 mode (F9): features,
+# alpha (:93-94) and aggregate()'s decoded output (:45)
+F9_LIMITS = {"features": 3e-5, "alpha": 3e-6, "decoded": 3e-6}
 # train step, kernel path vs un-fused path from the same state and noise
 LOSS_RTOL = 1e-5
 # K7's transpose (a sequential sum per id) vs index_add_ (atomics), f32,
@@ -547,6 +576,7 @@ def main():
     # ---- 5. K1 and K2 vs their plain versions on one chunk's inputs
     records = {"K1": phase5_k1(captured, launches),
                "K2": phase5_k2(captured, launches)}
+    phase5_f9(torch.device("cuda"))
     # phase 11 holds K6's ids to K1's on this chunk: K1's inputs wait on
     # the host, so phases 6-8 run on the card as they did before phase 9
     k1_args, k1_kw = captured["fused_knn_select"]
@@ -718,6 +748,61 @@ def phase5_k2_yardsticks(args, kwargs):
         assert counts["HGMMA"] + counts["HMMA"] > 0, counts
     else:
         log("phase 5: K2 SASS: cuobjdump not found, not checked")
+
+
+def phase5_f9(dev):
+    """Phase 5: K2's f32 mode at tests/test_fused_agg.py's inputs (the same
+    draws; the port's seeded init for the weights) against that file's own
+    limits: features and alpha (test_fused_pads_nonmultiple_rows: M = 35,
+    d * 0.01), aggregate()'s decoded output (test_fused_matches_xla_forward:
+    7 rays of 5 samples), the IEEE f32 plain path on the other side."""
+    import torch
+    from sgnerf_tpu_torch.models.aggregator import (AggregatorConfig,
+                                                    aggregate,
+                                                    init_aggregator_params)
+    from sgnerf_tpu_torch.ops.fused_agg import (fused_block1_alpha,
+                                                fused_block1_alpha_plain)
+    cfg = AggregatorConfig()
+    rng = np.random.default_rng(2)
+    M, K = 35, 8
+    feat = rng.normal(size=(M, K, 32)).astype(np.float32) * 0.2
+    d = rng.normal(size=(M, K, 6)).astype(np.float32) * 0.01
+    w = rng.random((M, K)).astype(np.float32)
+    p = init_aggregator_params(3, cfg, device=dev)
+    args = [torch.from_numpy(a).to(dev) for a in (feat, d, w)] + [
+        p["block1"], p["alpha_branch"]]
+    kw = dict(K=K, nf=3, df=5, bf16=False)
+    errs = {}
+    with torch.inference_mode():
+        got = fused_block1_alpha(*args, **kw)
+        ref = fused_block1_alpha_plain(*args, **kw)
+        for key, a, b in zip(("features", "alpha"), got, ref):
+            errs[key] = float((a - b).abs().max())
+        rng = np.random.default_rng(0)      # test_fused_agg.py _agg_inputs
+        B, R, SR = 1, 7, 5
+
+        def mk(shape):
+            return torch.from_numpy(
+                rng.normal(size=shape).astype(np.float32)).to(dev)
+        mask = torch.from_numpy(rng.random((B, R, SR, K)) < 0.5).to(dev)
+        emb = mk((B, R, SR, K, 32)) * 0.2
+        mk((B, R, SR, K, 3)), mk((B, R, SR, K, 3))   # colour, direction
+        akw = dict(sampled_embedding=emb,
+                   sampled_conf=mk((B, R, SR, K, 1)).abs(),
+                   sampled_xyz=mk((B, R, SR, K, 3)),
+                   sampled_xyz_pers=mk((B, R, SR, K, 3)),
+                   sample_pnt_mask=mask, sample_loc=mk((B, R, SR, 3)),
+                   sample_loc_w=mk((B, R, SR, 3)),
+                   sample_ray_dirs=mk((B, R, SR, 3)), Rw2c=None,
+                   vsize=(0.008,) * 3)
+        p = init_aggregator_params(0, cfg, device=dev)
+        a = aggregate(p, dataclasses.replace(cfg, fused_mlp="cuda"), **akw)
+        b = aggregate(p, cfg, **akw)
+        errs["decoded"] = float((a[0] - b[0]).abs().max())
+    log("phase 5: F9, K2 f32 at tests/test_fused_agg.py's inputs: max |diff| "
+        + ", ".join(f"{k} {v:.3e} (limit {F9_LIMITS[k]})"
+                    for k, v in errs.items()))
+    assert all(errs[k] <= F9_LIMITS[k] for k in errs), errs
 
 
 def phase9_11_frames(model, item, col, k1_host):
@@ -1010,25 +1095,87 @@ def train_batch(item, device, R=32 * 32):
         gt_image=rng.uniform(0, 1, (R, 3)).astype(np.float32)), device)
 
 
-def step_diff(model, cfg, ref_cfg, batch, seed=11):
+def step_diff(model, cfg, ref_cfg, batch, seed=11, on_branches=False):
     """One step's losses and gradients under cfg and under ref_cfg, from the
     same state and noise: (relative loss difference, worst gradient
-    max|diff| / max|ref|)."""
+    max|diff| / max|ref|). With on_branches (ref_cfg un-fused), the
+    reference's block1 takes the LeakyReLU branches of the forward cfg ran
+    (unfused_block1_on_branches); returns also the worst gradient
+    difference on its own branches and the flips per layer."""
     import torch
+    from sgnerf_tpu_torch.models import aggregator as agg_mod
     from sgnerf_tpu_torch.models.renderer import draw_render_noise
     from sgnerf_tpu_torch.models.train import loss_and_grads
-    gen = torch.Generator(device=model.device).manual_seed(seed)
-    noise = draw_render_noise(gen, cfg, 1, batch["raydir"].shape[1])
-    lk, gk_net, gk_pts = loss_and_grads(model.state, model.grid, cfg,
-                                        model.tcfg, batch, noise=noise)
-    lp, gp_net, gp_pts = loss_and_grads(model.state, model.grid, ref_cfg,
-                                        model.tcfg, batch, noise=noise)
-    loss_err = abs(float(lk["total"]) - float(lp["total"])) \
-        / abs(float(lp["total"]))
-    grad_err = max(float((a - b).abs().max()) / float(b.abs().max())
-                   for a, b in zip(gk_net + gk_pts, gp_net + gp_pts)
-                   if float(b.abs().max()) > 0)
-    return loss_err, grad_err
+    from sgnerf_tpu_torch.ops.fused_agg import k3a_recompute
+
+    def run(c, store=None):
+        gen = torch.Generator(device=model.device).manual_seed(seed)
+        noise = draw_render_noise(gen, cfg, 1, batch["raydir"].shape[1])
+        fn = (None if store is None else
+              capture_first_call(agg_mod, "fused_block1_alpha", store))
+        try:
+            loss, g_net, g_pts = loss_and_grads(model.state, model.grid, c,
+                                                model.tcfg, batch,
+                                                noise=noise)
+        finally:
+            if fn is not None:
+                agg_mod.fused_block1_alpha = fn
+        return float(loss["total"]), g_net + g_pts
+
+    def worst(got, ref):
+        return max(float((a - b).abs().max()) / float(b.abs().max())
+                   for a, b in zip(got, ref) if float(b.abs().max()) > 0)
+    store = {} if on_branches else None
+    lk, gk = run(cfg, store)
+    lp, gp = run(ref_cfg)
+    loss_err = abs(lk - lp) / abs(lp)
+    if not on_branches:
+        return loss_err, worst(gk, gp)
+    (feat, d, _, block1, alpha), kw = store["fused_block1_alpha"]
+    hs = k3a_recompute(feat.detach(), d.detach(),
+                       [{k: v.detach() for k, v in l_.items()}
+                        for l_ in block1],
+                       [{k: v.detach() for k, v in l_.items()}
+                        for l_ in alpha],
+                       nf=kw["nf"], df=kw["df"], bf16=kw["bf16"])[1]
+    flips = []
+    with unfused_block1_on_branches(agg_mod, hs, flips):
+        lb, gb = run(ref_cfg)
+    assert abs(lb - lp) <= LOSS_RTOL * abs(lp), (lb, lp)
+    return loss_err, worst(gk, gb), worst(gk, gp), flips
+
+
+@contextlib.contextmanager
+def unfused_block1_on_branches(agg_mod, hs, flips):
+    """The un-fused path's block1 (aggregator._mlp_apply on the block1
+    input) taking at every LeakyReLU the branch of hs (L, N, C), the
+    activations of the forward the kernel path ran (K3a's, K2's bit for
+    bit): where its own pre-activation lies on the other side of zero, it
+    takes hs's slope. Appends to `flips`, per layer, the count of such
+    activations and whether each lies within K2_TOL of the kernel's."""
+    import torch
+    from sgnerf_tpu_torch.ops.fused_agg import matmul
+    orig = agg_mod._mlp_apply
+
+    def apply(cfg, layers, x, act_last=True):
+        if (x.shape[-1] != cfg.block1_in or len(layers) != hs.shape[0]
+                or not act_last):
+            return orig(cfg, layers, x, act_last)
+        bf16 = cfg.compute_dtype == "bfloat16"
+        for layer, h in zip(layers, hs):
+            z = matmul(x, layer["w"], bf16) + layer["b"]
+            pos = h.view(z.shape) >= 0
+            flip = pos != (z >= 0)
+            zk = torch.where(pos, h.view(z.shape), h.view(z.shape) / 0.01)
+            flips.append((int(flip.sum()), bool(torch.allclose(
+                z.detach()[flip], zk[flip], **K2_TOL[bf16]))))
+            x = torch.where(pos, z, 0.01 * z)
+        return x
+    agg_mod._mlp_apply = apply
+    try:
+        yield
+    finally:
+        agg_mod._mlp_apply = orig
 
 
 def phase13_train_fused_color(item):
@@ -1133,11 +1280,16 @@ def phase6_7_train(item):
     # the same step through the kernels and through the un-fused path
     plain_cfg = dataclasses.replace(
         cfg, agg=dataclasses.replace(cfg.agg, fused_mlp="none"))
-    loss_err, grad_err = step_diff(model, cfg, plain_cfg, batch)
+    loss_err, grad_err, grad_own, flips = step_diff(
+        model, cfg, plain_cfg, batch, on_branches=True)
     log(f"phase 6: one step, kernel path vs un-fused path: loss rel diff "
         f"{loss_err:.3e} (tolerance {LOSS_RTOL}), worst gradient max|diff| "
-        f"/ max|plain| {grad_err:.3e} (tolerance {K3_TOL[False]})")
+        f"/ max|plain| {grad_err:.3e} with the un-fused block1 on the "
+        f"kernel forward's LeakyReLU branches (tolerance {K3_TOL[False]}), "
+        f"{grad_own:.3e} on its own; activations on the other branch, per "
+        f"layer (count, within K2_TOL): {flips}")
     assert loss_err <= LOSS_RTOL and grad_err <= K3_TOL[False]
+    assert flips and all(ok for _, ok in flips), flips
     del model, batch
     torch.cuda.empty_cache()
 
@@ -1147,50 +1299,203 @@ def phase6_7_train(item):
     kw = {k: v for k, v in captured["kw"].items() if k not in ("bf16", "bwd")}
     res = {}
     for bf16 in (False, True):
-        got = fused_block1_alpha_bwd(feat, d, w, block1, alpha, g,
-                                     bf16=bf16, **kw)
-        ref = fused_block1_alpha_bwd_plain(feat, d, w, block1, alpha, g,
-                                           bf16=bf16, **kw)
+        got = _flat_grads(fused_block1_alpha_bwd(feat, d, w, block1, alpha,
+                                                 g, bf16=bf16, **kw))
+        hs_k = phase7_k3a_is_k2(feat, d, w, block1, alpha, kw, bf16)
+        ref = _flat_grads(fused_block1_alpha_bwd_plain(
+            feat, d, w, block1, alpha, g, bf16=bf16, branches=hs_k, **kw))
+        own = _flat_grads(fused_block1_alpha_bwd_plain(
+            feat, d, w, block1, alpha, g, bf16=bf16, **kw))
         torch.cuda.synchronize()
-        flat = [(a, b) for a, b in zip(_flat_grads(got), _flat_grads(ref))]
         rel = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
-               for a, b in flat]
-        err = max(float((a - b).abs().max()) for a, b in flat)
+               for a, b in zip(got, ref)]
+        rel_own = [float((a - b).abs().max())
+                   / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(got, own)]
+        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        del ref, own, hs_k
         t_k = cuda_ms(lambda: fused_block1_alpha_bwd(
             feat, d, w, block1, alpha, g, bf16=bf16, **kw))
         t_p = cuda_ms(lambda: fused_block1_alpha_bwd_plain(
             feat, d, w, block1, alpha, g, bf16=bf16, **kw))
         log(f"phase 7: K3 fused_block1_alpha_bwd bf16={bf16} M="
             f"{feat.shape[0]} K={kw['K']}: max |diff| / max |plain| per "
-            f"output {[f'{v:.2e}' for v in rel]} (tolerance {K3_TOL[bf16]})"
-            f"; {t_k:.3f} ms vs plain {t_p:.3f} ms")
-        assert max(rel) <= K3_TOL[bf16], (bf16, rel)
-        res[bf16] = (err, t_k, t_p)
+            f"output against the plain K3 in f32 on the forward's branches "
+            f"{[f'{v:.2e}' for v in rel]} (tolerance {K3_TOL[bf16]}); "
+            f"against the plain K3 on its own branches "
+            f"{[f'{v:.2e}' for v in rel_own]}; {t_k:.3f} ms vs plain "
+            f"{t_p:.3f} ms")
+        res[bf16] = (err, t_k, t_p, rel)
     again = fused_block1_alpha_bwd(feat, d, w, block1, alpha, g, bf16=False,
                                    **kw)
     first = fused_block1_alpha_bwd(feat, d, w, block1, alpha, g, bf16=False,
                                    **kw)
     assert all(torch.equal(a, b) for a, b in zip(_flat_grads(again),
                                                   _flat_grads(first)))
-    log("phase 7: K3 reruns are bit-identical")
-    err, t_k, t_p = res[False]
-    rows = feat.shape[0] * feat.shape[1]
-    C = block1[0]["w"].shape[1]
-    weights = [t for l_ in block1 + alpha for t in l_.values()]
-    # recompute (one product per layer + alpha head), then two products per
-    # layer (dW and the input gradient) and the alpha-head terms
-    fma = rows * (3 * mlp_fma_per_row(block1) + 4 * C)
-    bound_ms, bound_by = bound(
-        nbytes(feat, d, w, g, *weights) * 2 - nbytes(g), 2.0 * fma,
-        F32_FLOPS)
-    log(f"phase 7: K3 bound {bound_ms:.3f} ms ({bound_by}, f32: "
-        f"{fma / 1e9:.1f} G FMA)")
+    log(f"phase 7: K3 reruns at the full shape ({feat.shape[0]} points x "
+        f"{kw['K']}) are bit-identical")
+    bound_ms, bound_by, t_lib = phase7_k3_parts(feat, d, w, block1, alpha,
+                                                g, kw)
+    for bf16, (_, _, _, rel) in res.items():   # after the per-launch lines
+        assert max(rel) <= K3_TOL[bf16], (bf16, rel)
+    err, t_k, t_p, _ = res[False]
     return {"name": "fused_block1_alpha_bwd", "route": "cuda",
             "source": "sgnerf_tpu_torch/csrc/fused_agg_bwd.cu",
             "replaces": "sgnerf_tpu/ops/fused_agg.py:523",
             "launches": launches["fused_block1_alpha_bwd"],
             "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": t_lib}
+
+
+def phase7_k3a_is_k2(feat, d, w, block1, alpha, kw, bf16):
+    """Phase 7: K3a's last activations, weighted and summed over K in
+    order, equal K2's features bit for bit (the backward reads the
+    forward's activations); the activations on the other LeakyReLU branch
+    than the plain recompute's, layer by layer, each within K2_TOL of it.
+    Returns K3a's activations."""
+    import torch
+    from sgnerf_tpu_torch.ops.fused_agg import (fused_block1_alpha,
+                                                k3a_recompute,
+                                                k3a_recompute_plain)
+    akw = dict(nf=kw["nf"], df=kw["df"], bf16=bf16)
+    fa, _ = fused_block1_alpha(feat, d, w, block1, alpha, K=kw["K"], **akw)
+    hs_k = k3a_recompute(feat, d, block1, alpha, **akw)[1]
+    hw = hs_k[-1].view(*w.shape, -1) * w[..., None]
+    s = torch.zeros_like(fa)
+    for k in range(kw["K"]):
+        s = s + hw[:, k]
+    hs_p = k3a_recompute_plain(feat, d, block1, alpha, **akw)[1]
+    flip = (hs_k >= 0) != (hs_p >= 0)
+    near = bool(torch.allclose(hs_k[flip], hs_p[flip], **K2_TOL[bf16]))
+    log(f"phase 7: bf16={bf16} K3a's last activations summed as K2 sums "
+        f"them equal K2's features bit for bit: {torch.equal(s, fa)}; "
+        f"activations on the other LeakyReLU branch than the plain "
+        f"recompute's, per layer, {[int(f.sum()) for f in flip]} of "
+        f"{hs_p[0].numel()} a layer, within K2_TOL of it: {near}")
+    assert torch.equal(s, fa) and near
+    return hs_k
+
+
+def phase7_k3_parts(feat, d, w, block1, alpha, g, kw):
+    """Phase 7 on the captured step: K3's three launches against their
+    plain statements and timed alone (f32 and bf16), K3's bound by unit,
+    the torch.matmul yardstick of its four products, its resources and
+    K3b's SASS. Returns (bound ms, bound by, yardstick ms)."""
+    import torch
+    from sgnerf_tpu_torch.ops import _cuda
+    from sgnerf_tpu_torch.ops.fused_agg import (
+        fused_block1_alpha_bwd_resources, k3a_recompute, k3a_recompute_plain,
+        k3b_data_grads, k3b_data_grads_plain, k3c_weight_grads,
+        k3c_weight_grads_plain)
+    K, nf, df = kw["K"], kw["nf"], kw["df"]
+    Fd = feat.shape[-1]
+    for bf16 in (False, True):
+        a_kw = dict(nf=nf, df=df, bf16=bf16)
+        b_kw = dict(K=K, nf=nf, df=df, F=Fd, bf16=bf16)
+        xa = k3a_recompute(feat, d, block1, alpha, **a_kw)
+        pa = k3a_recompute_plain(feat, d, block1, alpha, **a_kw)
+        xb = k3b_data_grads(*pa, w, g, block1, alpha, **b_kw)
+        pb = k3b_data_grads_plain(*pa, w, g, block1, alpha, **b_kw)
+        xc = k3c_weight_grads(pa[0], pa[1], pb[3], pb[4], bf16=bf16)
+        pc = k3c_weight_grads_plain(pa[0], pa[1], pb[3], pb[4], bf16=bf16)
+        torch.cuda.synchronize()
+        ea = [float((a - b).abs().max()) for a, b in zip(xa, pa)]
+        # activations whose LeakyReLU branch K3a and the plain version take
+        # differently: the backward's slope differs there
+        flips = int(((xa[1] >= 0) != (pa[1] >= 0)).sum())
+        oka = all(torch.allclose(a, b, **K2_TOL[bf16]) for a, b in zip(xa, pa))
+        gb = list(xb[:4]) + [xb[4].sum(0)]
+        rb = list(pb[:4]) + [pb[4].sum(0)]
+        eb = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+              for a, b in zip(gb, rb)]
+        ec = float((xc - pc).abs().max()) / float(pc.abs().max())
+        ms = [cuda_ms(lambda: k3a_recompute(feat, d, block1, alpha, **a_kw)),
+              cuda_ms(lambda: k3b_data_grads(*pa, w, g, block1, alpha,
+                                             **b_kw)),
+              cuda_ms(lambda: k3c_weight_grads(pa[0], pa[1], pb[3], pb[4],
+                                               bf16=bf16))]
+        log(f"phase 7: K3 bf16={bf16} launches: K3a {ms[0]:.3f} ms, max "
+            f"|diff| x/h/raw {[f'{v:.2e}' for v in ea]} (tolerance "
+            f"{K2_TOL[bf16]}), {flips} of {pa[1].numel()} activations on "
+            f"the other branch; K3b {ms[1]:.3f} ms, max |diff| / max |plain| "
+            f"dfeat/dd/dw/dh/[dwa|dba] {[f'{v:.2e}' for v in eb]} "
+            f"(tolerance {K3_TOL[bf16]}); K3c {ms[2]:.3f} ms, max |diff| / "
+            f"max |plain| {ec:.2e} (tolerance {K3C_RTOL}); sum "
+            f"{sum(ms):.3f} ms")
+        assert oka and max(eb) <= K3_TOL[bf16] and ec <= K3C_RTOL, (
+            bf16, ea, eb, ec)
+        del xa, pa, xb, pb, xc, pc
+    rows = feat.shape[0] * feat.shape[1]
+    C = block1[0]["w"].shape[1]
+    fma = rows * mlp_fma_per_row(block1)   # one pass of block1's products
+    weights = [t for l_ in block1 + alpha for t in l_.values()]
+    # the bytes: the inputs, the per-row outputs and the weight gradient,
+    # each once; the saved activations K3a writes and K3b/K3c read again
+    # are the design's, not the function's
+    nb = nbytes(feat, d, w, g, *weights) * 2 - nbytes(g)
+    bounds = {}
+    for bf16 in (False, True):
+        # block1's three passes of products (recompute, data gradient,
+        # weight gradient) at the card's rate for their type: the bf16
+        # tensor cores, or 3xTF32 (three tf32 products each) in f32 mode;
+        # the alpha head on the FP32 cores (4 C FMA a row: the head's dot,
+        # d_w, da, dwa). K3c runs dW on the FP32 cores by design; the
+        # bound does not.
+        tc = (1 if bf16 else 3) * 3 * 2.0 * fma
+        cc = 2.0 * 4 * rows * C
+        peaks = [BF16_FLOPS if bf16 else TF32_FLOPS, F32_FLOPS]
+        bounds[bf16] = bound(nb, [tc, cc], peaks)
+        log(f"phase 7: K3 bf16={bf16} bound {bounds[bf16][0]:.3f} ms "
+            f"({bounds[bf16][1]}): recompute + data gradient + weight "
+            f"gradient {tc / 1e9:.0f} GFLOP on the "
+            f"{'bf16' if bf16 else '3xTF32'} tensor cores at "
+            f"{peaks[0] / 1e12:.0f} TFLOP/s ({tc / peaks[0] * 1e3:.3f} ms) "
+            f"+ the alpha head {cc / 1e9:.2f} GFLOP on the FP32 cores at "
+            f"67 TFLOP/s ({cc / F32_FLOPS * 1e3:.3f} ms); "
+            f"{2 * fma / 1e9:.1f} GFLOP a pass of block1's products")
+    # yardstick: the four backward products alone, f32 with TF32 off
+    with torch.inference_mode():
+        gen = torch.Generator(device=feat.device).manual_seed(0)
+        x = torch.randn(rows, block1[0]["w"].shape[0], device=feat.device,
+                        generator=gen)
+        hs = [torch.randn(rows, C, device=feat.device, generator=gen)
+              for _ in block1]
+        wts = [l_["w"].detach() for l_ in block1]
+
+        def products():
+            outs = []
+            for i in reversed(range(len(block1))):
+                outs.append(torch.matmul(hs[i], wts[i].t()))      # da / dx
+                outs.append(torch.matmul(
+                    (x if i == 0 else hs[i - 1]).t(), hs[i]))     # dW
+            return outs
+        t_lib = cuda_ms(products)
+        del x, hs
+    log(f"phase 7: yardstick, K3's {2 * len(block1)} products by "
+        f"torch.matmul (f32, TF32 off) at the step's shape ({rows} rows): "
+        f"{t_lib:.3f} ms")
+    for bf16 in (False, True):
+        res = fused_block1_alpha_bwd_resources(Fd, nf, d.shape[-1], df, C,
+                                               bf16, feat.device)
+        log(f"phase 7: K3 bf16={bf16} resources (registers a thread, shared "
+            f"memory bytes a block, blocks of 256 threads an SM): "
+            + "; ".join(f"{k} {v['registers']}, {v['smem_bytes']}, "
+                        f"{v['blocks_per_sm']}" for k, v in res.items()))
+    lib = _cuda.build("fused_agg_bwd")
+    dump = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if os.path.exists(dump):
+        sass = subprocess.run([dump, "-sass", lib], capture_output=True,
+                              text=True).stdout
+        for part in sass.split("Function : ")[1:]:
+            name = part.split("\n", 1)[0]
+            if "k3b_dgrad_kernel" in name:
+                counts = {op: part.count(op) for op in ("HGMMA", "HMMA")}
+                log(f"phase 7: K3b SASS ({name[:60]}): {counts}")
+                assert counts["HGMMA"] > 0 and counts["HMMA"] == 0, counts
+    else:
+        log("phase 7: K3b SASS: cuobjdump not found, not checked")
+    return bounds[False][0], bounds[False][1], t_lib
 
 
 def profile_call(what, fn, top=8):

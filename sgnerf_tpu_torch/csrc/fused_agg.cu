@@ -18,7 +18,8 @@
 // in f32 mode, three tf32 passes at 495 TFLOP/s (3.0 ms), against 0.14 ms
 // of HBM traffic; next come the L2 traffic of the weights every tile
 // streams and the CUDA-core work around the products. Design: one block
-// of two warpgroups per 128-row tile (128 / K whole shading points); the
+// of two warpgroups per tile of 128 rows (bf16) or 64 (f32), 128 / K or
+// 64 / K whole shading points; the
 // tile body, fused_agg_body.cuh (shared with K4 and K5), runs every block1
 // product as Hopper wgmma (bf16, or 3xTF32 in f32 mode) from A in shared
 // memory and a TMA-fed ring of pre-packed weight k-slices, and writes only
@@ -41,7 +42,7 @@ fused_agg_kernel(const float* __restrict__ feat, const float* __restrict__ dist,
   if (threadIdx.x == 0) ring_init(smem);
   __syncthreads();
   uint32_t ring_it = 0;
-  const int tm = kRows / K;             // shading points per block
+  const int tm = tile_rows(BF16) / K;   // shading points per block
   const int m0 = blockIdx.x * tm;
   block1_alpha_tile<BF16>(feat, dist, wgt, Wp, Bias, n_layers, wa, ba, K, F,
                           nf, Dd, df, C, m0, min(tm, M - m0), smem, ring_it,
@@ -89,7 +90,7 @@ int fused_block1_alpha(const float* feat, const float* dist, const float* wgt,
   cudaError_t e = bf16 ? prepare<true>(&smem, F, nf, Dd, df, C)
                        : prepare<false>(&smem, F, nf, Dd, df, C);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int tm = kRows / K;
+  const int tm = tile_rows(bf16 != 0) / K;
   const int blocks = (M + tm - 1) / tm;
   if (bf16)
     fused_agg_kernel<true><<<blocks, kThreads, smem, stream>>>(
@@ -122,6 +123,14 @@ int fused_block1_alpha_occupancy(int F, int nf, int Dd, int df, int C,
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn,
                                                     kThreads, smem);
   return static_cast<int>(e);
+}
+
+// Bytes of dynamic shared memory a K2 block takes at these widths, or 0
+// when it exceeds what a block may have (ops/fused_agg.py k2_supports).
+// Host arithmetic only.
+int fused_block1_alpha_smem(int F, int nf, int Dd, int df, int C, int bf16) {
+  const size_t smem = body_smem_bytes(F, nf, Dd, df, C, bf16 != 0);
+  return smem > kMaxSmem ? 0 : static_cast<int>(smem);
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
 // The fused aggregator's tile body — PE -> block1 -> per-neighbour alpha ->
-// weighted K-reduction over 128 neighbour rows — shared by K2
+// weighted K-reduction over a tile of neighbour rows — shared by K2
 // (fused_agg.cu) and by K4/K5 (fused_agg_color.cu), which run the colour
 // head (and the volume march) on the reduced rows it leaves behind.
 //
@@ -15,26 +15,38 @@
 // round-to-nearest-even and sums in f32, as the reference's `_dot_mm`; the
 // last layer's h, the alpha head and the K-reduction stay f32. f32 mode
 // computes every product as 3xTF32: a = hi + lo with hi = tf32_rna(a),
-// lo = tf32_rna(a - hi), and a.b ~ lo.hi' + hi.lo' + hi.hi', summed in f32.
-// PE takes sincosf(x) once a channel and the higher frequencies by the
-// double-angle recurrence (within ~2^f ulp of sincosf(x 2^f)).
+// lo = tf32_rna(a - hi), and a.b ~ hi.hi' + (lo.hi' + hi.lo'), the big
+// products and the two small ones summed in separate accumulators and
+// added in f32 at the end. The tensor cores round each accumulation
+// toward zero: three accumulations a k-step into one sum put K2's f32 mode
+// 4.6e-5 from IEEE f32 on features of magnitude 13 (alpha 3.2e-6), past
+// tests/test_fused_agg.py's 3e-5 (3e-6); one a k-step in the big sum reads
+// 1.6e-5 (9.5e-7) there (NVIDIA H100 80GB HBM3, 700 W). The PE was not
+// the cause there (one sincosf a frequency read the same as the
+// double-angle recurrence).
+// K3's recompute (SAVE) is this body, the same products, PE and epilogue
+// in the same order, so the activations it saves, and the LeakyReLU
+// branches the backward reads from them, are the forward's bit for bit.
 //
 // What bounds it on an H100: the products. A canonical row costs
 // (284 + 256) x 256 MACs against ~200 bytes of input; a 9216-ray eval
 // chunk is 4.9e11 FLOP, 0.50 ms on the bf16 tensor cores (989 TFLOP/s;
 // f32 mode: three tf32 passes at 495 TFLOP/s, 3.0 ms) and 0.14 ms of HBM
 // traffic. Second, L2: every tile streams all the packed weights (278 KB
-// in bf16, twice that as tf32 hi/lo), so 128-row tiles read 3.8 GB (bf16)
-// per eval chunk from L2, half what 64-row tiles would. Third, the CUDA-core work around the products
+// in bf16, twice that as tf32 hi/lo), so bf16's 128-row tiles read 3.8 GB
+// per eval chunk from L2, half what 64-row tiles would (f32 mode takes
+// 64-row tiles for its accuracy: 15 GB). Third, the CUDA-core work around the products
 // (PE, epilogues, K-sum), which does not overlap them within a block.
 //
 // Design:
-// - 256 threads = two warpgroups, each 64 rows x 256 columns by Hopper's
-//   wgmma (m64n256; C < 256 multiplies zero weight columns), the sums in
-//   registers (128 a thread). bf16: wgmma m64n256k16 with A and B read
-//   from shared memory through no-swizzle K-major descriptors. f32: wgmma
-//   m64n256k8 tf32 three times a k-step, A from registers (split into tf32
-//   hi/lo as it loads), B's hi and lo planes from shared memory.
+// - 256 threads = two warpgroups by Hopper's wgmma (C < 256 multiplies
+//   zero weight columns), the sums in registers (128 a thread). bf16:
+//   128-row tiles, each warpgroup 64 rows x 256 columns, wgmma m64n256k16
+//   with A and B read from shared memory through no-swizzle K-major
+//   descriptors. f32: 64-row tiles, each warpgroup all 64 rows x 128 of
+//   the columns, wgmma m64n128k8 tf32 three times a k-step into the two
+//   accumulators (64 sums each), A from registers (split into tf32 hi/lo
+//   as it loads), B's hi and lo planes from shared memory.
 // - A, the PE rows and then each hidden layer, lives in shared memory: in
 //   bf16 as 8-column chunks of 128 16-byte rows (wgmma's core matrices);
 //   in f32 row-major, rows padded so that fragment loads hit 32 banks.
@@ -47,7 +59,8 @@
 //   slices load while the block stages its raw rows (cp.async) and
 //   computes their PE rows. A slice's wgmmas are issued before the
 //   previous slice's are waited for (f32 alternates two register sets for
-//   A's fragments).
+//   A's fragments, each loaded once the products that read it before are
+//   done, a slice ahead; f32 hands a stage back every second slice).
 // - The epilogue adds the bias (staged in shared memory with wa) and
 //   applies LeakyReLU from the registers, rounds to bf16 where a further
 //   layer follows, and writes the next A in place. The last layer forms
@@ -66,13 +79,19 @@
 
 namespace sgnerf_agg {
 
-constexpr int kRows = 128;     // neighbour rows per tile
-constexpr int kThreads = 256;  // a warpgroup per 64 rows
+constexpr int kRows = 128;     // neighbour rows per tile, at most
+constexpr int kThreads = 256;  // two warpgroups
 constexpr int kMinBlocks = 1;  // resident blocks an SM (__launch_bounds__)
-constexpr int kWgN = 256;      // every wgmma is 64 x 256 (C < 256: zero
+constexpr int kWgN = 256;      // the packed weights' columns (C < 256: zero
                                // weight columns past C)
 constexpr int kAccs = kWgN / 2;  // f32 sums a thread keeps
 static_assert(kRows == 64 * (kThreads / 128), "a warpgroup per 64 rows");
+
+// Rows of a tile: bf16 a warpgroup per 64 rows, f32 both on the same 64
+// rows, each on half the columns.
+__host__ __device__ constexpr int tile_rows(bool bf16) {
+  return bf16 ? kRows : 64;
+}
 constexpr int kMaxStages = 6;  // weight k-slices in the shared-memory ring
 constexpr int kMaxC = 256;     // hidden width limit
 constexpr int kSliceBytes = 64 * kWgN;  // one k-slice of packed weights
@@ -91,9 +110,8 @@ __host__ __device__ inline int round_up(int x, int m) {
 // fill 64 bytes a column.
 __host__ __device__ inline int slice_depth(bool bf16) { return bf16 ? 32 : 8; }
 
-// Stages of the ring: as many as shared memory leaves room for beside A
-// (f32 A takes twice the bytes of bf16 A).
-__host__ __device__ inline int ring_stages(bool bf16) { return bf16 ? 6 : 3; }
+// Stages of the ring: as many as shared memory leaves room for beside A.
+__host__ __device__ inline int ring_stages(bool) { return 6; }
 
 // Width of the first block1 input row.
 __host__ __device__ inline int block1_in(int F, int nf, int Dd, int df) {
@@ -103,11 +121,12 @@ __host__ __device__ inline int block1_in(int F, int nf, int Dd, int df) {
 // Shared-memory layout of the body, in bytes from the region's start.
 // A in bf16 mode: 8-column chunks, each kRows rows of 16 bytes (wgmma's
 // no-swizzle K-major core matrices: 8 rows x 16 bytes, 128 contiguous
-// bytes). A in f32 mode: row-major, lda floats a row.
+// bytes). A in f32 mode: row-major, lda floats a row, 64 rows.
 struct BodyLayout {
   int kp0;               // first layer's depth padded to the slice depth
   int lda;               // f32 A's row stride, in floats
   int lds;               // the staging's row stride, in floats (C + 8)
+  int rows;              // tile_rows(bf16)
   int stages;            // ring stages
   size_t ring_off;       // the ring follows A
   size_t raw_off;        // the tile's feat and dist rows follow the ring
@@ -125,14 +144,15 @@ __host__ __device__ inline BodyLayout body_layout(int in0, int n_raw, int C,
   // a row stride of 4 (mod 32) words spreads 8 rows over 32 banks
   L.lda = round_up(kmax, 32) + 4;
   L.lds = C + 8;  // 8 (mod 32) words: 8-byte stores of 4 rows hit 32 banks
+  L.rows = tile_rows(bf16);
   const size_t a_bytes =
-      static_cast<size_t>(kRows) * (bf16 ? 2 * kmax : 4 * L.lda);
+      static_cast<size_t>(L.rows) * (bf16 ? 2 * kmax : 4 * L.lda);
   L.ring_off = (a_bytes + 127) / 128 * 128;
   L.stages = ring_stages(bf16);
   L.raw_off = L.ring_off + static_cast<size_t>(L.stages) * kSliceBytes;
-  L.staging_bytes = static_cast<size_t>(kRows) * L.lds * sizeof(float);
-  const size_t end =
-      L.raw_off + static_cast<size_t>(kRows) * n_raw * sizeof(float);
+  L.staging_bytes = static_cast<size_t>(L.rows) * L.lds * sizeof(float);
+  const size_t raw = static_cast<size_t>(L.rows) * n_raw * sizeof(float);
+  const size_t end = L.raw_off + raw;
   L.region_bytes = end > L.staging_bytes ? end : L.staging_bytes;
   return L;
 }
@@ -338,28 +358,88 @@ __device__ __forceinline__ void wgmma_m64n256k8_tf32(float (&d)[128],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ void wgmma_wait_all(float (&acc)[kAccs]) {
+// As wgmma_m64n256k8_tf32 for 64 x 128: d[OFF ..] holds this thread's 64
+// sums (column 8 q + 2 t + e of rows r, r + 8 at d[OFF + 4 q + 2 h + e]).
+template <int OFF, int N>
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[N],
+    const uint32_t (&a)[4], uint64_t db) {
+  static_assert(OFF + 64 <= N, "accumulators");
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]),
+        "+f"(d[OFF + 3]), "+f"(d[OFF + 4]), "+f"(d[OFF + 5]),
+        "+f"(d[OFF + 6]), "+f"(d[OFF + 7]), "+f"(d[OFF + 8]),
+        "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]),
+        "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]),
+        "+f"(d[OFF + 15]), "+f"(d[OFF + 16]), "+f"(d[OFF + 17]),
+        "+f"(d[OFF + 18]), "+f"(d[OFF + 19]), "+f"(d[OFF + 20]),
+        "+f"(d[OFF + 21]), "+f"(d[OFF + 22]), "+f"(d[OFF + 23]),
+        "+f"(d[OFF + 24]), "+f"(d[OFF + 25]), "+f"(d[OFF + 26]),
+        "+f"(d[OFF + 27]), "+f"(d[OFF + 28]), "+f"(d[OFF + 29]),
+        "+f"(d[OFF + 30]), "+f"(d[OFF + 31]), "+f"(d[OFF + 32]),
+        "+f"(d[OFF + 33]), "+f"(d[OFF + 34]), "+f"(d[OFF + 35]),
+        "+f"(d[OFF + 36]), "+f"(d[OFF + 37]), "+f"(d[OFF + 38]),
+        "+f"(d[OFF + 39]), "+f"(d[OFF + 40]), "+f"(d[OFF + 41]),
+        "+f"(d[OFF + 42]), "+f"(d[OFF + 43]), "+f"(d[OFF + 44]),
+        "+f"(d[OFF + 45]), "+f"(d[OFF + 46]), "+f"(d[OFF + 47]),
+        "+f"(d[OFF + 48]), "+f"(d[OFF + 49]), "+f"(d[OFF + 50]),
+        "+f"(d[OFF + 51]), "+f"(d[OFF + 52]), "+f"(d[OFF + 53]),
+        "+f"(d[OFF + 54]), "+f"(d[OFF + 55]), "+f"(d[OFF + 56]),
+        "+f"(d[OFF + 57]), "+f"(d[OFF + 58]), "+f"(d[OFF + 59]),
+        "+f"(d[OFF + 60]), "+f"(d[OFF + 61]), "+f"(d[OFF + 62]),
+        "+f"(d[OFF + 63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait_all(float (&acc)[N]) {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 #pragma unroll
-  for (int i = 0; i < kAccs; ++i)  // no read of a sum before the wait
+  for (int i = 0; i < N; ++i)  // no read of a sum before the wait
     asm volatile("" : "+f"(acc[i])::"memory");
 }
 
-// Runs the body for the n_pts (<= kRows / K) shading points from m0 and
+// Where K3's recompute (fused_agg_bwd.cu) writes what the backward reads,
+// indexed by global neighbour row: x, the PE rows (ldx floats a row, zero
+// past in0), h, every layer's post-activation (layer l at h + l * h_layer,
+// C floats a row), and raw = h^{L-1} . wa + ba. The values are f32, before
+// bf16 mode rounds them for a product.
+struct SaveArgs {
+  float* x = nullptr;
+  int ldx = 0;
+  float* h = nullptr;
+  size_t h_layer = 0;
+  float* raw = nullptr;
+};
+
+// Runs the body for the n_pts (<= tile_rows / K) shading points from m0 and
 // writes their reduced rows [feat_agg (C) | alpha_agg] to dst[t * ld_dst + c]
 // (global memory, or shared memory past the staging). Wp is the packed
 // block1 weights (`pack_block1`), Bias the layers' biases concatenated.
 // `ring_it` counts the slices the block's ring has carried (0 before the
 // first body, after ring_init). Every thread of the block calls it; it
 // returns with the block synchronised, after which the region is free.
-template <bool BF16>
+// With SAVE (K3's recompute) it writes x, h and raw through `save` and
+// stops after the last layer: no alpha, no K-sum, dst and wgt unused.
+template <bool BF16, bool SAVE = false>
 __device__ __forceinline__ void block1_alpha_tile(
     const float* __restrict__ feat, const float* __restrict__ dist,
     const float* __restrict__ wgt, const void* __restrict__ Wp,
     const float* __restrict__ Bias, int n_layers,
     const float* __restrict__ wa, const float* __restrict__ ba, int K, int F,
     int nf, int Dd, int df, int C, int m0, int n_pts, unsigned char* smem,
-    uint32_t& ring_it, float* dst, int ld_dst) {
+    uint32_t& ring_it, float* dst, int ld_dst, SaveArgs save = SaveArgs()) {
+  constexpr int kR = tile_rows(BF16);
   const int in0 = block1_in(F, nf, Dd, df);
   const BodyLayout L = body_layout(in0, F + Dd + 2, C, BF16);
   const int kStages = L.stages;
@@ -380,7 +460,9 @@ __device__ __forceinline__ void block1_alpha_tile(
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int wg_row = (warp >> 2) * 64;         // the warpgroup's first row
+  const int wg = warp >> 2;
+  const int wg_row = BF16 ? wg * 64 : 0;    // the warpgroup's first row
+  const int wg_col = BF16 ? 0 : wg * 128;   // and first column
   const int rw = wg_row + 16 * (warp & 3) + g;  // the thread's rows rw, rw + 8
 
   // ---- 0. the first slices load while the raw rows arrive and the PE
@@ -404,12 +486,12 @@ __device__ __forceinline__ void block1_alpha_tile(
   // ---- 1. the tile's raw rows into shared memory (rows padded by a float
   // against bank conflicts), then their PE rows into A: zero rows past the
   // end, zero padding columns
-  const int tm = kRows / K;
+  const int tm = kR / K;
   const int nrows = tm * K;
   const size_t r0 = static_cast<size_t>(m0) * K;  // first global row
   const int rows_live = n_pts * K;
   float* raw_f = reinterpret_cast<float*>(region + L.raw_off);  // rows x F+1
-  float* raw_d = raw_f + kRows * (F + 1);                       // rows x Dd+1
+  float* raw_d = raw_f + kR * (F + 1);                          // rows x Dd+1
   {
     const float* gf = feat + r0 * F;
     const float* gd = dist + r0 * Dd;
@@ -419,7 +501,7 @@ __device__ __forceinline__ void block1_alpha_tile(
       cp_async4(raw_d + i + i / Dd, gd + i);
     asm volatile("cp.async.wait_all;\n" ::: "memory");
   }
-  if (tid < kRows) w_row[tid] = tid < rows_live ? wgt[r0 + tid] : 0.0f;
+  if (!SAVE && tid < kR) w_row[tid] = tid < rows_live ? wgt[r0 + tid] : 0.0f;
   for (int c = tid; c < C; c += kThreads) wa_s[c] = wa[c];
   __syncthreads();
   auto put = [&](int r, int j, float v) {
@@ -439,9 +521,14 @@ __device__ __forceinline__ void block1_alpha_tile(
       *reinterpret_cast<float2*>(reinterpret_cast<float*>(region) +
                                  r * L.lda + j) = make_float2(v0, v1);
   };
+  // bf16 mode saves x as it goes (A holds it rounded); f32 copies A below
+  auto save_x = [&](int r, int j, float v) {
+    if (SAVE && BF16 && r < rows_live)
+      save.x[(r0 + r) * static_cast<size_t>(save.ldx) + j] = v;
+  };
   const int nch = F + Dd;  // an item: a row's channel and its frequencies
-  for (int idx = tid; idx < kRows * nch; idx += kThreads) {
-    const int ch = idx / kRows, r = idx % kRows;  // rows fastest
+  for (int idx = tid; idx < kR * nch; idx += kThreads) {
+    const int ch = idx / kR, r = idx % kR;  // rows fastest
     const bool live = r < rows_live;
     const bool is_f = ch < F;
     const float x = live ? (is_f ? raw_f[r * (F + 1) + ch]
@@ -449,8 +536,12 @@ __device__ __forceinline__ void block1_alpha_tile(
                          : 0.0f;
     const int nfreq = is_f ? nf : df;
     const int j0 = is_f ? F + 2 * nf * ch : F + 2 * F * nf + 2 * df * (ch - F);
-    if (is_f) put(r, ch, x);
+    if (is_f) {
+      put(r, ch, x);
+      save_x(r, ch, x);
+    }
     // sin/cos of x 2^f by the double-angle recurrence from sincosf(x)
+    // (within ~2^f ulp)
     float sn = 0.0f, cs = 0.0f;
     if (live) sincosf(x, &sn, &cs);
     for (int f = 0; f < nfreq; ++f) {
@@ -460,20 +551,34 @@ __device__ __forceinline__ void block1_alpha_tile(
       } else {
         put2(r, j0 + 2 * f, sn, cs);
       }
+      save_x(r, j0 + 2 * f, sn);
+      save_x(r, j0 + 2 * f + 1, cs);
       const float s2 = 2.0f * sn * cs;
       cs = (cs - sn) * (cs + sn);
       sn = s2;
     }
   }
   const int npad = L.kp0 - in0;
-  for (int idx = tid; idx < kRows * npad; idx += kThreads)
-    put(idx % kRows, in0 + idx / kRows, 0.0f);
+  for (int idx = tid; idx < kR * npad; idx += kThreads) {
+    const int r = idx % kR, j = in0 + idx / kR;
+    put(r, j, 0.0f);
+    if (j < save.ldx) save_x(r, j, 0.0f);
+  }
   // A's generic writes before the tensor cores read it (async proxy)
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
+  if (SAVE && !BF16) {  // f32 A holds x as it is: copy its live rows
+    const float* A = reinterpret_cast<const float*>(region);
+    for (int idx = tid; idx < rows_live * save.ldx; idx += kThreads) {
+      const int r = idx / save.ldx, j = idx - r * save.ldx;
+      save.x[(r0 + r) * static_cast<size_t>(save.ldx) + j] = A[r * L.lda + j];
+    }
+  }
 
   // ---- 2. block1 on the tensor cores, the sums in registers: thread
-  // (warp, g, t) holds acc[4 q + 2 h + e] = row rw + 8 h, column 8 q + 2 t + e
+  // (warp, g, t) holds acc[4 q + 2 h + e] = row rw + 8 h, column
+  // wg_col + 8 q + 2 t + e; in f32 mode acc[64 + ..] holds the same
+  // entries' small products
   int it = 0;  // slices consumed by this body
   for (int l = 0; l < n_layers; ++l) {
     float acc[kAccs];
@@ -488,6 +593,20 @@ __device__ __forceinline__ void block1_alpha_tile(
     // and hand its stage back to the ring. f32 alternates two register
     // sets for A's fragments (set B), each kept until its products are done.
     uint32_t ah[2][4], al[2][4];
+    // f32: A's fragment of slice s (rows rw, rw + 8; columns k0 + t, + 4)
+    // as tf32 hi/lo into set B, loaded one slice ahead of its products
+    auto load_a = [&](int s, auto set) {
+      constexpr int B = decltype(set)::value;
+      const float* p = reinterpret_cast<const float*>(region) +
+                       rw * L.lda + s * KS + t;
+      const float v[4] = {p[0], p[8 * L.lda], p[4], p[8 * L.lda + 4]};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ah[B][i] = tf32_rna(v[i]);
+        al[B][i] = tf32_rna(v[i] - __uint_as_float(ah[B][i]));
+      }
+    };
+    if (!BF16) load_a(0, std::integral_constant<int, 0>());
     auto step = [&](int s, auto set) {
       constexpr int B = decltype(set)::value;
       const uint32_t gi = it0 + it;
@@ -506,26 +625,26 @@ __device__ __forceinline__ void block1_alpha_tile(
               wgmma_desc(slice + 2 * kk * (kWgN * 16), kWgN * 16, 128), 1);
         }
       } else {
-        // A's fragment (rows rw, rw + 8; columns k0 + t, + 4) as tf32 hi/lo
-        const float* p = reinterpret_cast<const float*>(region) +
-                         rw * L.lda + s * KS + t;
-        const float v[4] = {p[0], p[8 * L.lda], p[4], p[8 * L.lda + 4]};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          ah[B][i] = tf32_rna(v[i]);
-          al[B][i] = tf32_rna(v[i] - __uint_as_float(ah[B][i]));
-        }
-        const uint64_t bh = wgmma_desc(slice, kWgN * 16, 128);
-        const uint64_t blo = wgmma_desc(slice + 2 * kWgN * 16, kWgN * 16, 128);
+        // the warpgroup's 128 columns of the hi and lo planes
+        const uint32_t bcol = slice + wg_col * 16;
+        const uint64_t bh = wgmma_desc(bcol, kWgN * 16, 128);
+        const uint64_t blo = wgmma_desc(bcol + 2 * kWgN * 16, kWgN * 16, 128);
         asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-        wgmma_m64n256k8_tf32(acc, al[B], bh);  // small terms first
-        wgmma_m64n256k8_tf32(acc, ah[B], blo);
-        wgmma_m64n256k8_tf32(acc, ah[B], bh);
+        wgmma_m64n128k8_tf32<kAccs / 2>(acc, al[B], bh);  // small products
+        wgmma_m64n128k8_tf32<kAccs / 2>(acc, ah[B], blo);
+        wgmma_m64n128k8_tf32<0>(acc, ah[B], bh);          // big products
       }
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
       asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-      __syncthreads();  // every warpgroup is done with the previous slice
-      refill(it);
+      // the previous slice's products are done: its register set takes
+      // the next slice's fragment
+      if (!BF16 && s + 1 < ns) load_a(s + 1, std::integral_constant<int, 1 - B>());
+      // every warpgroup is done with the previous slice: its stage goes
+      // back to the ring (f32's half-width slices, every second slice)
+      if (BF16 || B == 1) {
+        __syncthreads();
+        refill(it);
+      }
       ++it;
     };
     for (int s = 0; s < ns; s += 2) {
@@ -535,25 +654,46 @@ __device__ __forceinline__ void block1_alpha_tile(
     wgmma_wait_all(acc);
     __syncthreads();  // both warpgroups' products read A and the ring
     refill(it);
+    if (!BF16) {  // f32: the pre-activations into acc[i]
+#pragma unroll
+      for (int q = 0; q < kWgN / 16; ++q) {
+        if (wg_col + 8 * q < C) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {  // j = 2 h + e
+            const int i = 4 * q + j;
+            acc[i] = acc[i] + acc[kAccs / 2 + i] +
+                     bias_s[wg_col + 8 * q + 2 * t + (j & 1)];
+          }
+        }
+      }
+    }
     // epilogue: bias, LeakyReLU; the next A in place (the thread's own
     // rows), or f32 h to the staging and the alpha head's dot h . wa
     const bool last = l == n_layers - 1;
     float dot[2] = {0.0f, 0.0f};
-    const float wr[2] = {w_row[rw], w_row[rw + 8]};
+    float wr[2] = {0.0f, 0.0f};
+    if (!SAVE) wr[0] = w_row[rw], wr[1] = w_row[rw + 8];
+    float* hsave = save.h + l * save.h_layer + r0 * static_cast<size_t>(C);
+    constexpr int kQ = BF16 ? kWgN / 8 : kWgN / 16;  // the thread's 8-column groups
 #pragma unroll
-    for (int q = 0; q < kAccs / 4; ++q) {
-      const int c = 8 * q + 2 * t;
-      if (8 * q < C) {  // c < C, uniform across the warp (C % 32 == 0)
+    for (int q = 0; q < kQ; ++q) {
+      const int c = wg_col + 8 * q + 2 * t;
+      if (wg_col + 8 * q < C) {  // c < C, uniform across the warp (C % 32 == 0)
         const float2 bb = *reinterpret_cast<const float2*>(bias_s + c);
         const float2 ww = *reinterpret_cast<const float2*>(wa_s + c);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int r = rw + 8 * h;
-          const float v0 = leaky(acc[4 * q + 2 * h] + bb.x);
-          const float v1 = leaky(acc[4 * q + 2 * h + 1] + bb.y);
+          const int i = 4 * q + 2 * h;
+          // bf16: the sums; f32: the pre-activations
+          const float v0 = leaky(BF16 ? acc[i] + bb.x : acc[i]);
+          const float v1 = leaky(BF16 ? acc[i + 1] + bb.y : acc[i + 1]);
+          if (SAVE && r < rows_live)
+            *reinterpret_cast<float2*>(hsave + r * C + c) = make_float2(v0, v1);
           if (last) {
-            *reinterpret_cast<float2*>(staging + r * L.lds + c) =
-                make_float2(v0 * wr[h], v1 * wr[h]);
+            if (!SAVE)
+              *reinterpret_cast<float2*>(staging + r * L.lds + c) =
+                  make_float2(v0 * wr[h], v1 * wr[h]);
             dot[h] = fmaf(v1, ww.y, fmaf(v0, ww.x, dot[h]));
           } else {
             put2(r, c, v0, v1);
@@ -561,23 +701,33 @@ __device__ __forceinline__ void block1_alpha_tile(
         }
       }
     }
-    if (last) {  // the row's dot: the four threads of its columns, a fixed tree
+    if (last) {  // the row's dot: the four threads of its columns, a fixed
+                 // tree; f32 keeps each warpgroup's half apart
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         float v = dot[h];
         v += __shfl_xor_sync(0xffffffffu, v, 1);
         v += __shfl_xor_sync(0xffffffffu, v, 2);
-        if (t == 0) alpha_w[rw + 8 * h] = v;
+        if (t == 0) alpha_w[(BF16 ? 0 : wg * 64) + rw + 8 * h] = v;
       }
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
   }
   ring_it = it0 + n_slices;
+  // the row's dot h . wa (f32: the two halves, in order)
+  auto row_dot = [&](int r) {
+    return BF16 ? alpha_w[r] : alpha_w[r] + alpha_w[64 + r];
+  };
+  if (SAVE) {
+    if (tid < rows_live) save.raw[r0 + tid] = row_dot(tid) + ba[0];
+    __syncthreads();
+    return;
+  }
 
   // ---- 3. per-neighbour alpha (f32 head): softplus of the dot
   if (tid < nrows) {
-    const float x = alpha_w[tid] + ba[0] - 1.0f;
+    const float x = row_dot(tid) + ba[0] - 1.0f;
     const float alpha = fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));  // softplus
     alpha_w[tid] = alpha * w_row[tid];
   }

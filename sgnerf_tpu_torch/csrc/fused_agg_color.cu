@@ -29,17 +29,19 @@
 // adds (C + 6 vf) x 128 + 2 x 128 x 128 + 128 x 3 = 68,992 FMA a point at
 // the canonical config to K2's ~1.1M (8 neighbour rows), ~6%; the fusion
 // keeps the (M, C+1) reduced rows (and, for K5, every per-sample tensor of
-// the march) out of device memory. Design: K4 is K2's block (128 neighbour
-// rows = 128/K points, K2's tile body on the tensor cores, the same packed
-// weights) followed, on the tile's reduced rows kept in shared memory past
-// the body's staging, by the colour layers as small dense f32 products on
-// the CUDA cores: the thread c + N g (N = the layer's width) owns column c
-// for rows g, g + 256/N, ..., with the weights staged through a 32-row
-// tile in the body's dead region. K5 gives each block whole rays
-// (max(1, (128/K) / SR) of them): it walks the rays' points in K2-sized
-// sub-tiles, keeps [alpha | rgb] of every point in shared memory past the
-// body's region, then one thread marches each ray. The colour heads are
-// the simple, right first version; their tensor cores are later work.
+// the march) out of device memory. Design: K4 is K2's block (K2's tile
+// body on the tensor cores, the same packed weights: 128 neighbour rows in
+// bf16, 128/K points; f32 runs its 64-row body twice for as many points
+// where shared memory allows) followed, on the reduced rows kept in shared
+// memory, by the colour layers as small dense f32 products on the CUDA
+// cores: the thread c + N g (N = the layer's width) owns column c for rows
+// g, g + 256/N, ..., with the weights staged through a 32-row tile in the
+// body's dead region, once a colour head. K5 gives each block whole rays
+// (max(1, points a colour head / SR) of them): it walks the rays' points
+// in K4-sized groups, keeps [alpha | rgb] of every point in shared memory
+// past the body's region, then one thread marches each ray. The colour
+// heads are the simple, right first version; their tensor cores are later
+// work.
 #include "fused_agg_body.cuh"
 
 using namespace sgnerf_agg;
@@ -149,26 +151,32 @@ __device__ void color_head(const float* red, int n, const float* __restrict__ vd
 // Byte offsets in a K4/K5 block's shared memory past the body's head:
 // the colour scratch and its weight tile over the body's dead region, the
 // reduced rows and logits past the body's staging (the K-sum writes them
-// while it reads the staging), K5's per-point [alpha | rgb] past all of it.
+// while it reads the staging; with nsub > 1 bodies a colour head, past
+// the body's whole region, which the next body takes), K5's per-point
+// [alpha | rgb] past all of it.
 struct ColorLayout {
   size_t wtile, red, logits, pts, total;
 };
+
+// Bodies a colour head: f32's 64-row tiles hold half bf16's points, so f32
+// runs two bodies into the reduced rows before one colour head (which
+// streams the colour weights once a head) where shared memory allows.
+constexpr int kMaxSub = kRows / 64;
 
 __host__ __device__ inline size_t align16(size_t b) { return (b + 15) / 16 * 16; }
 
 __host__ __device__ inline ColorLayout color_layout(int F, int nf, int Dd,
                                                     int df, int C, int K,
                                                     int vf, int Nh, bool bf16,
-                                                    int march_pts) {
+                                                    int march_pts, int nsub) {
   const BodyLayout B = body_layout(block1_in(F, nf, Dd, df), F + Dd + 2, C, bf16);
-  const size_t tm = kRows / K;
+  const size_t tm = static_cast<size_t>(tile_rows(bf16) / K) * nsub;
   const size_t scratch = align16(tm * (C + 6 * vf + 2 * Nh) * sizeof(float));
   const size_t wtile = static_cast<size_t>(kTileK) * C * sizeof(float);
+  const size_t kept = nsub > 1 ? B.region_bytes : B.staging_bytes;
   ColorLayout L;
   L.wtile = kHeadBytes + scratch;
-  L.red = kHeadBytes + align16(B.staging_bytes > scratch + wtile
-                                   ? B.staging_bytes
-                                   : scratch + wtile);
+  L.red = kHeadBytes + align16(kept > scratch + wtile ? kept : scratch + wtile);
   L.logits = L.red + align16(tm * (C + 1) * sizeof(float));
   const size_t end = L.logits + align16(tm * 3 * sizeof(float));
   const size_t body_end = kHeadBytes + B.region_bytes;
@@ -190,20 +198,24 @@ fused_agg_color_kernel(const float* __restrict__ feat,
                        const float* __restrict__ CW,
                        const float* __restrict__ CB, int n_clayers, int Nh,
                        int M, int K, int F, int nf, int Dd, int df, int C,
-                       int vf, float* __restrict__ out) {
+                       int vf, int nsub, float* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char smem[];
   const ColorLayout CL =
-      color_layout(F, nf, Dd, df, C, K, vf, Nh, BF16, 0);
+      color_layout(F, nf, Dd, df, C, K, vf, Nh, BF16, 0, nsub);
   if (threadIdx.x == 0) ring_init(smem);
   __syncthreads();
   uint32_t ring_it = 0;
-  const int tm = kRows / K;
-  const int m0 = blockIdx.x * tm;
-  const int n = min(tm, M - m0);
-  float* red = reinterpret_cast<float*>(smem + CL.red);        // tm x (C+1)
-  float* logits = reinterpret_cast<float*>(smem + CL.logits);  // tm x 3
-  block1_alpha_tile<BF16>(feat, dist, wgt, Wp, Bias, n_layers, wa, ba, K, F,
-                          nf, Dd, df, C, m0, n, smem, ring_it, red, C + 1);
+  const int tm = tile_rows(BF16) / K;  // points a body
+  const int m0 = blockIdx.x * tm * nsub;
+  const int n = min(tm * nsub, M - m0);
+  float* red = reinterpret_cast<float*>(smem + CL.red);  // n x (C+1)
+  float* logits = reinterpret_cast<float*>(smem + CL.logits);  // n x 3
+  for (int sb = 0; sb * tm < n; ++sb)  // uniform across the block
+    block1_alpha_tile<BF16>(feat, dist, wgt, Wp, Bias, n_layers, wa, ba, K,
+                            F, nf, Dd, df, C, m0 + sb * tm,
+                            min(tm, n - sb * tm), smem, ring_it,
+                            red + static_cast<size_t>(sb) * tm * (C + 1),
+                            C + 1);
   color_head(red, n, vd, m0, C, vf, CW, CB, n_clayers, Nh, BF16,
              reinterpret_cast<float*>(smem + kHeadBytes),
              reinterpret_cast<float*>(smem + CL.wtile), logits);
@@ -229,15 +241,15 @@ fused_agg_march_kernel(const float* __restrict__ feat,
                        const float* __restrict__ CW,
                        const float* __restrict__ CB, int n_clayers, int Nh,
                        int M, int K, int F, int nf, int Dd, int df, int C,
-                       int vf, int SR, int rays_per_block,
+                       int vf, int SR, int rays_per_block, int nsub,
                        float* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char smem[];
   const ColorLayout CL =
-      color_layout(F, nf, Dd, df, C, K, vf, Nh, BF16, 0);
+      color_layout(F, nf, Dd, df, C, K, vf, Nh, BF16, 0, nsub);
   if (threadIdx.x == 0) ring_init(smem);
   __syncthreads();
   uint32_t ring_it = 0;
-  const int tm = kRows / K;
+  const int tm = tile_rows(BF16) / K;
   const int ray0 = blockIdx.x * rays_per_block;
   const int rays = min(rays_per_block, M / SR - ray0);
   const int p0 = ray0 * SR, n_pts = rays * SR;
@@ -246,11 +258,14 @@ fused_agg_march_kernel(const float* __restrict__ feat,
   float* pts = reinterpret_cast<float*>(smem + CL.pts);  // n_pts x 4: [alpha | rgb]
   float* scratch = reinterpret_cast<float*>(smem + kHeadBytes);
   float* wtile = reinterpret_cast<float*>(smem + CL.wtile);
-  for (int s0 = 0; s0 < n_pts; s0 += tm) {
-    const int n = min(tm, n_pts - s0);
-    block1_alpha_tile<BF16>(feat, dist, wgt, Wp, Bias, n_layers, wa, ba, K,
-                            F, nf, Dd, df, C, p0 + s0, n, smem, ring_it, red,
-                            C + 1);
+  for (int s0 = 0; s0 < n_pts; s0 += tm * nsub) {
+    const int n = min(tm * nsub, n_pts - s0);
+    for (int sb = 0; sb * tm < n; ++sb)  // uniform across the block
+      block1_alpha_tile<BF16>(feat, dist, wgt, Wp, Bias, n_layers, wa, ba, K,
+                              F, nf, Dd, df, C, p0 + s0 + sb * tm,
+                              min(tm, n - sb * tm), smem, ring_it,
+                              red + static_cast<size_t>(sb) * tm * (C + 1),
+                              C + 1);
     color_head(red, n, vd, p0 + s0, C, vf, CW, CB, n_clayers, Nh, BF16,
                scratch, wtile, logits);
     for (int idx = threadIdx.x; idx < n * 4; idx += kThreads) {
@@ -289,13 +304,36 @@ fused_agg_march_kernel(const float* __restrict__ feat,
 }
 
 // Bytes of shared memory of a K4/K5 block (march_pts: K5's points a
-// block); 0 when the shape does not fit one block.
+// block; nsub bodies a colour head); 0 when the shape does not fit one
+// block.
 size_t color_smem_bytes(int K, int F, int nf, int Dd, int df, int C, int vf,
-                        int n_clayers, int Nh, bool bf16, int march_pts) {
+                        int n_clayers, int Nh, bool bf16, int march_pts,
+                        int nsub) {
   if (n_clayers < 1 || vf < 1 || vf > 30 || Nh < 3 || Nh > C) return 0;
   const size_t total =
-      color_layout(F, nf, Dd, df, C, K, vf, Nh, bf16, march_pts).total;
+      color_layout(F, nf, Dd, df, C, K, vf, Nh, bf16, march_pts, nsub).total;
   return total > kMaxSmem ? 0 : total;
+}
+
+// K5's rays a block for nsub bodies a colour head.
+int march_rays(int K, int SR, bool bf16, int nsub) {
+  const int pts = tile_rows(bf16) / K * nsub;
+  return pts / SR > 1 ? pts / SR : 1;
+}
+
+// A K4 (SR = 0) or K5 block's shared memory and its bodies a colour head:
+// the most bodies (f32: up to kMaxSub) whose block fits. *smem = 0 when
+// none does.
+void pick_layout(int K, int F, int nf, int Dd, int df, int C, int vf,
+                 int n_clayers, int Nh, int SR, bool bf16, size_t* smem,
+                 int* nsub) {
+  *smem = 0;
+  for (*nsub = bf16 ? 1 : kMaxSub; *nsub >= 1; --*nsub) {
+    const int pts = SR > 0 ? march_rays(K, SR, bf16, *nsub) * SR : 0;
+    *smem = color_smem_bytes(K, F, nf, Dd, df, C, vf, n_clayers, Nh, bf16,
+                             pts, *nsub);
+    if (*smem > 0) return;
+  }
 }
 
 bool agg_args_ok(int M, int K, int F, int nf, int Dd, int df, int C,
@@ -338,20 +376,22 @@ int fused_block1_alpha_color(const float* feat, const float* dist,
                              cudaStream_t stream) {
   if (!agg_args_ok(M, K, F, nf, Dd, df, C, n_layers))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = color_smem_bytes(K, F, nf, Dd, df, C, vf, n_clayers,
-                                       Nh, bf16 != 0, 0);
+  size_t smem = 0;
+  int nsub = 0;
+  pick_layout(K, F, nf, Dd, df, C, vf, n_clayers, Nh, 0, bf16 != 0, &smem,
+              &nsub);
   if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return 0;
   cudaError_t e = bf16 ? allow_smem(fused_agg_color_kernel<true>, smem)
                        : allow_smem(fused_agg_color_kernel<false>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int tm = kRows / K;
-  const int blocks = (M + tm - 1) / tm;
+  const int pts = tile_rows(bf16 != 0) / K * nsub;
+  const int blocks = (M + pts - 1) / pts;
   auto kernel = bf16 ? fused_agg_color_kernel<true>
                      : fused_agg_color_kernel<false>;
   kernel<<<blocks, kThreads, smem, stream>>>(
       feat, dist, wgt, vd, Wp, Bias, n_layers, wa, ba, CW, CB, n_clayers, Nh,
-      M, K, F, nf, Dd, df, C, vf, out);
+      M, K, F, nf, Dd, df, C, vf, nsub, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -369,10 +409,11 @@ int fused_block1_alpha_color_march(
   if (!agg_args_ok(M, K, F, nf, Dd, df, C, n_layers) || SR < 1 ||
       M % SR != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int tm = kRows / K;
-  const int rays_per_block = tm / SR > 1 ? tm / SR : 1;
-  const size_t smem = color_smem_bytes(K, F, nf, Dd, df, C, vf, n_clayers,
-                                       Nh, bf16 != 0, rays_per_block * SR);
+  size_t smem = 0;
+  int nsub = 0;
+  pick_layout(K, F, nf, Dd, df, C, vf, n_clayers, Nh, SR, bf16 != 0, &smem,
+              &nsub);
+  const int rays_per_block = march_rays(K, SR, bf16 != 0, nsub);
   if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return 0;
   cudaError_t e = bf16 ? allow_smem(fused_agg_march_kernel<true>, smem)
@@ -385,8 +426,22 @@ int fused_block1_alpha_color_march(
   kernel<<<blocks, kThreads, smem, stream>>>(
       feat, dist, wgt, vd, ray_dist, ray_valid, Wp, Bias, n_layers, wa, ba,
       CW, CB, n_clayers, Nh, M, K, F, nf, Dd, df, C, vf, SR, rays_per_block,
-      out);
+      nsub, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Bytes of dynamic shared memory a K4 (SR = 0) or K5 block takes at these
+// widths, or 0 when no layout fits a block (ops/fused_agg.py
+// k4_supports). Host arithmetic only.
+int fused_block1_alpha_color_smem(int K, int F, int nf, int Dd, int df,
+                                  int C, int vf, int n_clayers, int Nh,
+                                  int SR, int bf16) {
+  if (!agg_args_ok(0, K, F, nf, Dd, df, C, 1) || SR < 0) return 0;
+  size_t smem = 0;
+  int nsub = 0;
+  pick_layout(K, F, nf, Dd, df, C, vf, n_clayers, Nh, SR, bf16 != 0, &smem,
+              &nsub);
+  return static_cast<int>(smem);
 }
 
 }  // extern "C"

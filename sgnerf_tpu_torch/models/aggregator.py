@@ -19,8 +19,9 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.fused_agg import (fused_block1_alpha, fused_block1_alpha_color,
-                             fused_block1_alpha_color_march, leaky_relu,
-                             matmul, softplus)
+                             fused_block1_alpha_color_march, k2_supports,
+                             k3_supports, k4_supports, leaky_relu, matmul,
+                             softplus)
 from ..ops.pe import positional_encoding
 
 
@@ -181,6 +182,37 @@ def use_fused(cfg: AggregatorConfig) -> bool:
             and cfg.act_type == "LeakyReLU" and cfg.act_super > 0)
 
 
+def fused_paths(cfg: AggregatorConfig, *, K: int, F: int, Dd: int,
+                color_branch, training: bool, device, march: bool = False,
+                SR: int = 1) -> str:
+    """Which aggregator path runs on `device`: "march" (K5), "color" (K4),
+    "block1" (K2, the colour head outside) or "none" (un-fused). The
+    reference's gate (use_fused), then the shapes each kernel takes
+    (fused_agg.py k2_supports .. k4_supports; their shared-memory clause
+    is the CUDA library's, asked on a CUDA device only): outside K2's the
+    un-fused path; when training with the K3 backward, outside K3's too,
+    so that no K2 forward runs without a backward to follow; K5 and K4
+    outside theirs step down to K4 or K2 and the plain colour head."""
+    if not use_fused(cfg):
+        return "none"
+    shape = dict(K=K, F=F, Dd=Dd, nf=cfg.num_feat_freqs,
+                 df=abs(cfg.dist_xyz_freq), C=cfg.shading_feature_num,
+                 bf16=cfg.compute_dtype == "bfloat16", device=device)
+    if not k2_supports(**shape) or (training and cfg.fused_bwd == "cuda"
+                                    and not k3_supports(**shape)):
+        return "none"
+    vf = cfg.num_viewdir_freqs
+    n = len(color_branch)
+    head = dict(vf=vf, Nh=color_branch[0]["w"].shape[1] if n > 1 else 3,
+                n_clayers=n)
+    if vf > 0 and march and cfg.fused_march and k4_supports(**shape, **head,
+                                                            SR=SR):
+        return "march"
+    if vf > 0 and cfg.fused_color and k4_supports(**shape, **head):
+        return "color"
+    return "block1"
+
+
 def aggregate(params: Dict[str, Any], cfg: AggregatorConfig, *,
               sampled_embedding,     # (B,R,SR,K,F)
               sampled_conf,          # (B,R,SR,K,1) or None
@@ -227,8 +259,16 @@ def aggregate(params: Dict[str, Any], cfg: AggregatorConfig, *,
         d = torch.cat([d[..., :3] @ Rw2c.T, d[..., 3:]], dim=-1)
 
     color = None
-    fused = use_fused(cfg)
     vf = cfg.num_viewdir_freqs
+    training = torch.is_grad_enabled() and any(
+        t.requires_grad for t in [sampled_embedding, d, w]
+        + [t for k in ("block1", "alpha_branch", "color_branch")
+           for layer in params[k] for t in layer.values()])
+    path = fused_paths(cfg, K=K, F=sampled_embedding.shape[-1],
+                       Dd=d.shape[-1], color_branch=params["color_branch"],
+                       training=training, device=sampled_embedding.device,
+                       march=march is not None, SR=SR)
+    fused = path != "none"
     if fused:
         M = B * R * SR
         kw = dict(K=K, nf=cfg.num_feat_freqs, df=abs(cfg.dist_xyz_freq),
@@ -238,7 +278,7 @@ def aggregate(params: Dict[str, Any], cfg: AggregatorConfig, *,
                 (w * mask.to(weight.dtype)).reshape(M, K).to(torch.float32))
         vd = ori_viewdirs.reshape(M, 3).to(torch.float32)
     # the march kernel carries its own colour head, whatever fused_color says
-    if march is not None and cfg.fused_march and fused and vf > 0:
+    if path == "march":
         out4 = fused_block1_alpha_color_march(
             *args, vd, march["ray_dist"].reshape(M).to(torch.float32),
             ray_valid.reshape(M).to(torch.float32), params["block1"],
@@ -246,7 +286,7 @@ def aggregate(params: Dict[str, Any], cfg: AggregatorConfig, *,
             **kw)
         return ({"march": out4.reshape(B, R, 4)}, ray_valid, weight,
                 conf_coefficient)
-    if fused and vf > 0 and cfg.fused_color:
+    if path == "color":
         al, rawc = fused_block1_alpha_color(
             *args, vd, params["block1"], params["alpha_branch"],
             params["color_branch"], vf=vf, bwd=cfg.fused_bwd, **kw)

@@ -43,6 +43,8 @@ _SIGNATURES = {
         # F, nf, Dd, df, C, bf16, *regs, *smem_bytes, *blocks_per_sm
         "fused_block1_alpha_occupancy": [_I, _I, _I, _I, _I, _I, _P, _P,
                                          _P],
+        # F, nf, Dd, df, C, bf16 -> shared memory bytes a block, 0: too big
+        "fused_block1_alpha_smem": [_I, _I, _I, _I, _I, _I],
     },
     "fused_agg_color": {
         # feat, d, w, vd, W, b, n_layers, wa, ba, CW, CB, n_clayers, Nh, M,
@@ -57,13 +59,27 @@ _SIGNATURES = {
                                            _I, _P, _P, _P, _P, _I, _I, _I,
                                            _I, _I, _I, _I, _I, _I, _I, _I,
                                            _I, _P, _P],
+        # K, F, nf, Dd, df, C, vf, n_clayers, Nh, SR (0: K4), bf16 ->
+        # shared memory bytes a block, 0: too big
+        "fused_block1_alpha_color_smem": [_I, _I, _I, _I, _I, _I, _I, _I,
+                                          _I, _I, _I],
     },
     "fused_agg_bwd": {
-        # feat, d, w, g, W, WT, b, n_layers, wa, ba, M, K, F, nf, Dd, df, C,
-        # bf16, n_blocks, partial, dfeat, dd, dw, dparams, stream
-        "fused_block1_alpha_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
-                                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
-                                   _P, _P, _P, _P, _P],
+        # feat, d, W, b, n_layers, wa, ba, N, F, nf, Dd, df, C, bf16, x,
+        # ldx, h, raw, stream
+        "fused_agg_bwd_recompute": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
+                                    _I, _I, _I, _I, _P, _I, _P, _P, _P],
+        # x, ldx, h, raw, w, g, WT, wa, n_layers, N, K, F, nf, Dd, df, C,
+        # bf16, dfeat, dd, dw, dh, alpha_part, stream
+        "fused_agg_bwd_dgrad": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                                _P],
+        # x, ldx, h, dh, alpha_part, n_tiles, n_layers, N, in0, C, bf16,
+        # partial, out, stream
+        "fused_agg_bwd_wgrad": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _P, _P, _P],
+        # F, nf, Dd, df, C, bf16, *regs[3], *smem_bytes[3], *blocks[3]
+        "fused_agg_bwd_occupancy": [_I, _I, _I, _I, _I, _I, _P, _P, _P],
     },
     "gather_rows": {
         # table, idx, out, S, row_bytes, T, wave, stream

@@ -4,12 +4,16 @@ backward, and its variants with the colour head and the volume march.
 Counterpart of `sgnerf_tpu/ops/fused_agg.py`: `fused_block1_alpha`
 (forward `_pallas_forward`, backward `_pallas_backward`),
 `fused_block1_alpha_color` and `fused_block1_alpha_color_march`. The CUDA
-kernels are `csrc/fused_agg.cu` (K2), `csrc/fused_agg_bwd.cu` (K3) and
-`csrc/fused_agg_color.cu` (K4, K5); their headers say what bounds them and
-how they are laid out. Each `*_plain` function states a kernel's function
-in PyTorch (`*_bwd_plain`: autograd of the plain forward). The wrappers run
-the plain versions only for tensors on the CPU; for CUDA tensors they
-launch the kernels or raise. On CUDA `fused_block1_alpha` is a
+kernels are `csrc/fused_agg.cu` (K2), `csrc/fused_agg_bwd.cu` (K3, three
+launches: K3a-K3c) and `csrc/fused_agg_color.cu` (K4, K5); their headers
+say what bounds them and how they are laid out. Each `*_plain` function
+states a kernel's function in PyTorch (K3's: one per launch, composed by
+`fused_block1_alpha_bwd_plain`, which equals autograd of the plain
+forward). The wrappers run the plain versions only for tensors on the CPU;
+for CUDA tensors they launch the kernels or raise. `k2_supports`,
+`k3_supports` and `k4_supports` (K5 with SR) state the shapes each kernel
+takes, asking the CUDA library for the shared-memory clause on the card;
+the aggregator's gate consults them. On CUDA `fused_block1_alpha` is a
 torch.autograd.Function whose forward is K2 and whose backward is K3
 (bwd="cuda") or the plain gradient (bwd="plain", the JAX package's "xla"
 backward); `fused_block1_alpha_color` likewise has K4 forward and, with
@@ -125,16 +129,130 @@ def _vjp(fn, tensors, blocks, grad_outputs):
     return grads[:len(tensors)], _layers(grads[len(tensors):], counts)
 
 
-def fused_block1_alpha_bwd_plain(feat, d, w, block1, alpha_branch, g, *,
-                                 K: int, nf: int, df: int, bf16: bool):
-    """Plain K3: the gradient of fused_block1_alpha_plain for the output
-    cotangent g (M, C+1) = [gF | gA]. Returns (d_feat (M,K,F), d_d (M,K,Dd),
-    d_w (M,K), d_block1 [{"w","b"}...], d_alpha [{"w","b"}])."""
+# K3 runs as three launches over the N = M*K neighbour rows (csrc/
+# fused_agg_bwd.cu): K3a recomputes the forward and saves what the
+# backward reads, K3b runs the data-gradient chain, K3c forms the weight
+# gradients. Their plain statements follow; fused_block1_alpha_bwd_plain
+# composes them. Saved activations are the f32 values the products take
+# as inputs (bf16 mode rounds them where it multiplies).
+
+
+def k3a_recompute_plain(feat, d, block1, alpha_branch, *, nf: int, df: int,
+                        bf16: bool):
+    """Plain K3a: feat (M,K,F), d (M,K,Dd) -> (x (N, in0) the PE rows
+    [feat | PE(feat) | PE(d)], hs (L, N, C) every layer's post-activation,
+    raw (N,) = h^{L-1} . wa + ba)."""
+    x = torch.cat([feat, positional_encoding(feat, nf),
+                   positional_encoding(d, df)], dim=-1)
+    x = x.reshape(-1, x.shape[-1])
+    hs, h = [], x
+    for layer in block1:
+        h = leaky_relu(matmul(h, layer["w"], bf16) + layer["b"])
+        hs.append(h)
+    wa, ba = alpha_branch[0]["w"], alpha_branch[0]["b"]
+    raw = (h * wa[:, 0]).sum(-1) + ba
+    return x, torch.stack(hs), raw
+
+
+def pe_fold(dx, x, F: int, Dd: int, nf: int, df: int):
+    """The PE chain rule: dx (N, in0), the cotangent of the PE rows x (N,
+    in0) -> (d_feat (N, F), d_d (N, Dd)): per channel, its raw column plus
+    sum_f 2^f (d sin . cos - d cos . sin)."""
+    def fold(lo, n, nfr):
+        span = slice(lo, lo + 2 * n * nfr)
+        g = dx[:, span].reshape(-1, n, nfr, 2)
+        v = x[:, span].reshape(-1, n, nfr, 2)
+        dz = g[..., 0] * v[..., 1] - g[..., 1] * v[..., 0]
+        bands = 2.0 ** torch.arange(nfr, dtype=dx.dtype, device=dx.device)
+        return (dz * bands).sum(-1)
+    dfeat = dx[:, :F] + fold(F, F, nf)
+    return dfeat, fold(F + 2 * F * nf, Dd, df)
+
+
+def k3b_data_grads_plain(x, hs, raw, w, g, block1, alpha_branch, *, K: int,
+                         nf: int, df: int, F: int, bf16: bool):
+    """Plain K3b: K3a's outputs, w (M,K) and the cotangent g (M, C+1) =
+    [gF | gA] -> (d_feat (N, F), d_d (N, Dd), d_w (N,), dhs (L, N, C) the
+    cotangent of every layer's pre-activation, alpha_part (T, C+1) partial
+    sums of [d_wa | d_ba] that K3c adds up; T = 1 here)."""
     C = g.shape[-1] - 1
-    (dfeat, dd, dw), (dblock1, dalpha) = _vjp(
-        lambda *a: fused_block1_alpha_plain(*a, K=K, nf=nf, df=df, bf16=bf16),
-        (feat, d, w), (block1, alpha_branch), (g[:, :C], g[:, C:]))
-    return dfeat, dd, dw, dblock1, dalpha
+    gF = g[:, :C].repeat_interleave(K, dim=0)
+    gA = g[:, C].repeat_interleave(K)
+    wr = w.reshape(-1)
+    h = hs[-1]
+    xa = raw - 1.0
+    d_w = (gF * h).sum(-1) + softplus(xa) * gA
+    # softplus' = sigmoid, in autograd's form (the same bits)
+    draw = (gA * wr) / (1.0 + torch.exp(-xa))
+    da = gF * wr[:, None] + draw[:, None] * alpha_branch[0]["w"][:, 0]
+    dhs = [None] * len(block1)
+    for l in reversed(range(len(block1))):
+        dhs[l] = torch.where(hs[l] >= 0, da, 0.01 * da)
+        da = matmul(dhs[l], block1[l]["w"].t(), bf16)
+    Dd = (x.shape[-1] - F - 2 * F * nf) // (2 * df)
+    dfeat, dd = pe_fold(da, x, F, Dd, nf, df)
+    alpha_part = torch.cat([(h * draw[:, None]).sum(0), draw.sum()[None]])
+    return dfeat, dd, d_w, torch.stack(dhs), alpha_part[None]
+
+
+def k3c_weight_grads_plain(x, hs, dhs, alpha_part, *, bf16: bool):
+    """Plain K3c: -> the flat weight gradient (params_grad_size): dW_0 =
+    x^T dh^0, dW_l = h^{l-1 T} dh^l, db_l = sum dh^l, then [d_wa | d_ba]
+    = the sum of alpha_part's rows. bf16 rounds the products' operands."""
+    ins = [x] + list(hs[:-1])
+    dW = [matmul(a.t(), b, bf16) for a, b in zip(ins, dhs)]
+    db = [b.sum(0) for b in dhs]
+    return torch.cat([t.reshape(-1) for t in dW + db]
+                     + [alpha_part.sum(0)])
+
+
+def params_grad_size(n_layers: int, in0: int, C: int) -> int:
+    """Floats of K3's flat weight gradient: dW_0 (in0 x C) | dW_1..
+    (C x C) | db_0.. (C each) | d_wa (C) | d_ba (1)."""
+    return in0 * C + (n_layers - 1) * C * C + n_layers * C + C + 1
+
+
+def _split_params_grad(flat, block1, alpha_branch):
+    """K3's flat weight gradient -> (d_block1, d_alpha) layer lists."""
+    L = len(block1)
+    in0, C = block1[0]["w"].shape
+    parts = torch.split(flat, [in0 * C] + [C * C] * (L - 1) + [C] * L
+                        + [C, 1])
+    dblock1 = [{"w": parts[i].view(block1[i]["w"].shape),
+                "b": parts[L + i].view(block1[i]["b"].shape)}
+               for i in range(L)]
+    dalpha = [{"w": parts[2 * L].view(alpha_branch[0]["w"].shape),
+               "b": parts[2 * L + 1].view(alpha_branch[0]["b"].shape)}]
+    return dblock1, dalpha
+
+
+def fused_block1_alpha_bwd_plain(feat, d, w, block1, alpha_branch, g, *,
+                                 K: int, nf: int, df: int, bf16: bool,
+                                 branches=None):
+    """Plain K3: K3a, K3b and K3c's plain statements in turn; the gradient
+    of fused_block1_alpha_plain for the output cotangent g (M, C+1) =
+    [gF | gA]. Returns (d_feat (M,K,F), d_d (M,K,Dd), d_w (M,K), d_block1
+    [{"w","b"}...], d_alpha [{"w","b"}]).
+
+    K3 is the gradient of the forward that ran: K3a recomputes K2's
+    activations bit for bit and reads LeakyReLU's branch from them.
+    `branches` (L, N, C), optional, are such activations (K3a's); where
+    the plain recompute's activation lies on the other branch (a
+    pre-activation within the two forwards' rounding of zero), the plain
+    K3 takes that activation's value and branch from them."""
+    F = feat.shape[-1]
+    x, hs, raw = k3a_recompute_plain(feat, d, block1, alpha_branch, nf=nf,
+                                     df=df, bf16=bf16)
+    if branches is not None:
+        hs = torch.where((hs >= 0) == (branches >= 0), hs,
+                         branches.to(hs.dtype))
+    dfeat, dd, dw, dhs, alpha_part = k3b_data_grads_plain(
+        x, hs, raw, w, g, block1, alpha_branch, K=K, nf=nf, df=df, F=F,
+        bf16=bf16)
+    flat = k3c_weight_grads_plain(x, hs, dhs, alpha_part, bf16=bf16)
+    dblock1, dalpha = _split_params_grad(flat, block1, alpha_branch)
+    return (dfeat.view(feat.shape), dd.view(d.shape), dw.view(w.shape),
+            dblock1, dalpha)
 
 
 def color_tail_plain(fa, vd, color_branch, *, vf: int, bf16: bool):
@@ -233,12 +351,13 @@ def _check_cuda(ts, feat, d, block1, K, nf, df, what, max_k=64, max_in=None):
 
 def _check_block1(block1, in0, what, K=1, max_k=64, max_in=None):
     """Shapes the kernels take: block1 (in0, C) then (C, C) layers, C % 32
-    == 0, C <= 256, 1 <= K <= max_k; returns C."""
+    == 0, C <= 256, 1 <= K <= max_k (None: no limit); returns C."""
     C = block1[0]["w"].shape[1]
     if block1[0]["w"].shape[0] != in0 or any(
             tuple(l_["w"].shape) != (C, C) for l_ in block1[1:]):
         raise ValueError(f"block1 must be ({in0},{C}) then ({C},{C}) layers")
-    if (C % 32 or not 32 <= C <= 256 or not 1 <= K <= max_k
+    if (C % 32 or not 32 <= C <= 256 or K < 1
+            or (max_k is not None and K > max_k)
             or (max_in is not None and in0 > max_in)):
         raise ValueError(f"{what} needs C % 32 == 0, C <= 256, K <= {max_k}"
                          f", block1 input <= {max_in}; got C={C} K={K} "
@@ -278,6 +397,51 @@ def _check_color(feat, vd, block1, color_branch, vf, extra=()):
 # lo planes.
 SLICE_DEPTH = {True: 32, False: 8}
 WGMMA_N = 256
+TILE_ROWS = {True: 128, False: 64}   # rows of a tile: bf16, f32 mode
+K3_MAX_IN = WGMMA_N + 32             # K3b's dx: 256 columns, then 32
+K3C_SLAB = 2048                      # rows K3c sums into one partial
+
+def _smem_fits(device, fn, *dims) -> bool:
+    """Whether a block of the kernel fits the card's shared memory at these
+    widths, as the CUDA library lays it out (`fused_block1_alpha_smem` or
+    `fused_block1_alpha_color_smem`, host arithmetic). Off the card the
+    plain versions run, which take any shape: True."""
+    if device is None or torch.device(device).type != "cuda":
+        return True
+    lib = _cuda.load("fused_agg" if fn == "fused_block1_alpha_smem"
+                     else "fused_agg_color")
+    return getattr(lib, fn)(*dims) > 0
+
+
+def k2_supports(*, K, F, Dd, nf, df, C, bf16, device=None):
+    """The shapes K2 takes: C % 32 == 0, 32 <= C <= 256, 1 <= K <= 64,
+    1 <= nf, df <= 30 and, on a CUDA `device`, its block within the card's
+    shared memory."""
+    return (C % 32 == 0 and 32 <= C <= 256 and 1 <= K <= 64 and F >= 1
+            and Dd >= 1 and 1 <= nf <= 30 and 1 <= df <= 30
+            and _smem_fits(device, "fused_block1_alpha_smem", F, nf, Dd, df,
+                           C, int(bf16)))
+
+
+def k3_supports(*, K, F, Dd, nf, df, C, bf16, device=None):
+    """The shapes K3 takes: K2's widths (K3a is K2's body), any K, and a
+    block1 input of at most K3_MAX_IN columns."""
+    return (k2_supports(K=1, F=F, Dd=Dd, nf=nf, df=df, C=C, bf16=bf16,
+                        device=device)
+            and K >= 1 and F + 2 * F * nf + 2 * Dd * df <= K3_MAX_IN)
+
+
+def k4_supports(*, K, F, Dd, nf, df, C, bf16, vf, Nh, n_clayers, SR=0,
+                device=None):
+    """The shapes K4 (or with SR > 0, K5) takes: K2's, K <= 32, a colour
+    head of n_clayers layers with 3 <= Nh <= C and vf <= 30, and, on a
+    CUDA `device`, its block within the card's shared memory."""
+    return (k2_supports(K=K, F=F, Dd=Dd, nf=nf, df=df, C=C, bf16=bf16,
+                        device=device)
+            and K <= 32 and n_clayers >= 1 and 1 <= vf <= 30
+            and 3 <= Nh <= C
+            and _smem_fits(device, "fused_block1_alpha_color_smem", K, F,
+                           nf, Dd, df, C, vf, n_clayers, Nh, SR, int(bf16)))
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:
@@ -287,6 +451,26 @@ def tf32_rna(x: torch.Tensor) -> torch.Tensor:
     return ((b + 0x1000) & -0x2000).view(torch.float32)
 
 
+def pack_kslices(w: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """One (k, n <= WGMMA_N) operand B of the tile body's products in its
+    layout, flat: the rows padded with zero rows to a multiple of
+    SLICE_DEPTH[bf16], the columns with zeros to WGMMA_N, cut into
+    k-slices of 16-byte planes (bf16, or tf32 hi planes then lo planes)."""
+    ks = SLICE_DEPTH[bf16]
+    w = w.detach().to(torch.float32)
+    k, n = w.shape
+    kp = -(-k // ks) * ks
+    wp = w.new_zeros(kp, WGMMA_N)
+    wp[:k, :n] = w
+    ws = wp.reshape(kp // ks, ks, WGMMA_N)          # (S, ks, N)
+    if bf16:
+        x = ws.reshape(-1, 4, 8, WGMMA_N).to(torch.bfloat16)
+    else:
+        hi = tf32_rna(ws)
+        x = torch.cat([hi, tf32_rna(ws - hi)], 1).reshape(-1, 4, 4, WGMMA_N)
+    return x.transpose(2, 3).reshape(-1)            # (S, plane, N, e)
+
+
 def pack_block1(block1: List[Dict[str, torch.Tensor]], in0: int,
                 bf16: bool):
     """block1's weights in the tile body's layout for one mode, and its
@@ -294,48 +478,52 @@ def pack_block1(block1: List[Dict[str, torch.Tensor]], in0: int,
     flat; biases (n_layers * C,) float32). The first layer's in0 rows are
     padded with zero rows to a multiple of SLICE_DEPTH[bf16], the columns
     with zeros to WGMMA_N."""
-    C = _check_block1(block1, in0, "pack_block1")
-    ks = SLICE_DEPTH[bf16]
-    parts = []
-    for layer in block1:
-        w = layer["w"].detach().to(torch.float32)
-        k = w.shape[0]
-        kp = -(-k // ks) * ks
-        wp = w.new_zeros(kp, WGMMA_N)
-        wp[:k, :C] = w
-        ws = wp.reshape(kp // ks, ks, WGMMA_N)          # (S, ks, N)
-        if bf16:
-            x = ws.reshape(-1, 4, 8, WGMMA_N).to(torch.bfloat16)
-        else:
-            hi = tf32_rna(ws)
-            x = torch.cat([hi, tf32_rna(ws - hi)], 1).reshape(-1, 4, 4,
-                                                             WGMMA_N)
-        parts.append(x.transpose(2, 3).reshape(-1))  # (S, plane, N, e)
+    _check_block1(block1, in0, "pack_block1")
+    packed = torch.cat([pack_kslices(l_["w"], bf16) for l_ in block1])
     bias = torch.cat([l_["b"].detach().reshape(-1) for l_ in block1])
-    return torch.cat(parts), bias.to(torch.float32).contiguous()
+    return packed, bias.to(torch.float32).contiguous()
 
 
-_PACKED: dict = {}   # bf16 -> (weight tensors, their versions, packed, bias)
+def pack_block1_bwd(block1: List[Dict[str, torch.Tensor]], in0: int,
+                    bf16: bool) -> torch.Tensor:
+    """The B operands of K3b's products in the order it takes them, each
+    packed by pack_kslices: W_{L-1}^T .. W_1^T (C x C), then W_0^T (C x
+    in0) as its columns past WGMMA_N (when in0 > WGMMA_N) and its first
+    WGMMA_N columns."""
+    _check_block1(block1, in0, "pack_block1_bwd", max_in=K3_MAX_IN)
+    w0t = block1[0]["w"].t()
+    mats = [l_["w"].t() for l_ in reversed(block1[1:])]
+    if in0 > WGMMA_N:
+        mats.append(w0t[:, WGMMA_N:])
+    mats.append(w0t[:, :WGMMA_N])
+    return torch.cat([pack_kslices(m, bf16) for m in mats])
 
 
-def _packed_block1(block1, in0, bf16):
-    """pack_block1, kept while the same weight tensors hold the same values
-    (the same objects at the same version counts): the render calls K2
-    once a chunk with unchanged weights; an optimizer step bumps the
-    versions. Inference tensors keep no version count and are packed every
-    call."""
+_PACKED: dict = {}   # (kind, bf16) -> (weight tensors, versions, packed)
+
+
+def _packed(fn, block1, in0, bf16):
+    """fn(block1, in0, bf16) (pack_block1 or pack_block1_bwd), kept while
+    the same weight tensors hold the same values (the same objects at the
+    same version counts): the render calls K2 once a chunk with unchanged
+    weights; an optimizer step bumps the versions. Inference tensors keep
+    no version count and are packed every call."""
     ts = tuple(t for l_ in block1 for t in (l_["w"], l_["b"]))
     if any(t.is_inference() for t in ts):
-        return pack_block1(block1, in0, bf16)
+        return fn(block1, in0, bf16)
     versions = tuple(t._version for t in ts)
-    hit = _PACKED.get(bf16)
+    hit = _PACKED.get((fn.__name__, bf16))
     if (hit is not None and len(hit[0]) == len(ts)
             and all(a is b for a, b in zip(hit[0], ts))
             and hit[1] == versions):
-        return hit[2], hit[3]
-    packed, bias = pack_block1(block1, in0, bf16)
-    _PACKED[bf16] = (ts, versions, packed, bias)
-    return packed, bias
+        return hit[2]
+    packed = fn(block1, in0, bf16)
+    _PACKED[(fn.__name__, bf16)] = (ts, versions, packed)
+    return packed
+
+
+def _packed_block1(block1, in0, bf16):
+    return _packed(pack_block1, block1, in0, bf16)
 
 
 def _alpha_args(alpha_branch):
@@ -365,6 +553,10 @@ def _launch_fwd(feat, d, w, block1, alpha_branch, K, nf, df, bf16):
                          "fused_block1_alpha")
     M, _, Fd = feat.shape
     Dd = d.shape[-1]
+    if not k2_supports(K=K, F=Fd, Dd=Dd, nf=nf, df=df, C=C, bf16=bf16,
+                       device=feat.device):
+        raise ValueError(f"fused_block1_alpha does not take K={K} F={Fd} "
+                         f"Dd={Dd} nf={nf} df={df} C={C} (k2_supports)")
     Wall, Ball = _packed_block1(block1, in0, bf16)
     wa, ba = _alpha_args(alpha_branch)
     feat, d, w = feat.contiguous(), d.contiguous(), w.contiguous()
@@ -393,6 +585,13 @@ def _launch_color(feat, d, w, vd, block1, alpha_branch, color_branch, K, nf,
                          max_k=32)
     M, _, Fd = feat.shape
     Dd = d.shape[-1]
+    if not k4_supports(K=K, F=Fd, Dd=Dd, nf=nf, df=df, C=C, bf16=bf16,
+                       vf=vf, Nh=Nh, n_clayers=len(color_branch),
+                       SR=0 if march is None else march[2],
+                       device=feat.device):
+        raise ValueError(f"{what} does not take K={K} C={C} Nh={Nh} vf={vf}"
+                         " here: its block exceeds shared memory "
+                         "(k4_supports)")
     Wall, Ball = _packed_block1(block1, in0, bf16)
     wa, ba = _alpha_args(alpha_branch)
     CW = torch.cat([l_["w"].reshape(-1) for l_ in color_branch])
@@ -423,58 +622,163 @@ def _launch_color(feat, d, w, vd, block1, alpha_branch, color_branch, K, nf,
     return out
 
 
+def _k3_launch(lib_fn, what, *args):
+    lib = _cuda.load("fused_agg_bwd")
+    err = getattr(lib, lib_fn)(*args)
+    _cuda.check(lib, err, what)
+
+
+def k3a_recompute(feat, d, block1, alpha_branch, *, nf: int, df: int,
+                  bf16: bool):
+    """K3a: K2's forward again, saving what the backward reads. Returns
+    k3a_recompute_plain's (x, hs, raw); on CUDA x is a view (N, in0) of a
+    buffer whose rows are padded to a multiple of 4 floats."""
+    if feat.device.type == "cpu":
+        return k3a_recompute_plain(feat, d, block1, alpha_branch, nf=nf,
+                                   df=df, bf16=bf16)
+    M, K, Fd = feat.shape
+    Dd = d.shape[-1]
+    in0 = Fd + 2 * Fd * nf + 2 * Dd * df
+    N, C, L = M * K, block1[0]["w"].shape[1], len(block1)
+    ldx = -(-in0 // 4) * 4
+    Wall, Ball = _packed_block1(block1, in0, bf16)
+    wa, ba = _alpha_args(alpha_branch)
+    feat, d = feat.detach().contiguous(), d.detach().contiguous()
+    dev = feat.device
+    x = torch.empty((N, ldx), dtype=torch.float32, device=dev)
+    hs = torch.empty((L, N, C), dtype=torch.float32, device=dev)
+    raw = torch.empty((N,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _k3_launch("fused_agg_bwd_recompute", "K3a", _cuda.ptr(feat),
+                   _cuda.ptr(d), _cuda.ptr(Wall), _cuda.ptr(Ball), L,
+                   _cuda.ptr(wa), _cuda.ptr(ba), N, Fd, nf, Dd, df, C,
+                   int(bf16), _cuda.ptr(x), ldx,
+                   _cuda.ptr(hs), _cuda.ptr(raw), _cuda.stream_of(feat))
+    return x[:, :in0], hs, raw
+
+
+def _rows4(x):
+    """x (N, in0) as rows of a multiple of 4 floats, unit column stride
+    (K3a's buffers already are)."""
+    if x.stride(1) == 1 and x.stride(0) % 4 == 0 and x.stride(0) >= x.shape[1]:
+        return x, x.stride(0)
+    ldx = -(-x.shape[1] // 4) * 4
+    buf = x.new_zeros((x.shape[0], ldx))
+    buf[:, :x.shape[1]] = x
+    return buf, ldx
+
+
+def k3_tiles(N: int, bf16: bool) -> int:
+    """K3b's tiles of rows (alpha_part's rows on CUDA)."""
+    return -(-N // TILE_ROWS[bf16])
+
+
+def k3b_data_grads(x, hs, raw, w, g, block1, alpha_branch, *, K: int,
+                   nf: int, df: int, F: int, bf16: bool):
+    """K3b: the data-gradient chain. Returns k3b_data_grads_plain's
+    (d_feat, d_d, d_w, dhs, alpha_part); on CUDA alpha_part has a row per
+    tile of K3b (k3_tiles)."""
+    if x.device.type == "cpu":
+        return k3b_data_grads_plain(x, hs, raw, w, g, block1, alpha_branch,
+                                    K=K, nf=nf, df=df, F=F, bf16=bf16)
+    N, in0 = x.shape
+    L, C = len(block1), block1[0]["w"].shape[1]
+    Dd = (in0 - F - 2 * F * nf) // (2 * df)
+    xb, ldx = _rows4(x)
+    WT = _packed(pack_block1_bwd, block1, in0, bf16)
+    wa, _ = _alpha_args(alpha_branch)
+    hs, raw, w, g = (t.detach().contiguous() for t in (hs, raw, w, g))
+    dev = x.device
+    dfeat = torch.empty((N, F), dtype=torch.float32, device=dev)
+    dd = torch.empty((N, Dd), dtype=torch.float32, device=dev)
+    dw = torch.empty((N,), dtype=torch.float32, device=dev)
+    dhs = torch.empty((L, N, C), dtype=torch.float32, device=dev)
+    alpha_part = torch.empty((k3_tiles(N, bf16), C + 1), dtype=torch.float32,
+                             device=dev)
+    with torch.cuda.device(dev):
+        _k3_launch("fused_agg_bwd_dgrad", "K3b", _cuda.ptr(xb), ldx,
+                   _cuda.ptr(hs), _cuda.ptr(raw), _cuda.ptr(w), _cuda.ptr(g),
+                   _cuda.ptr(WT), _cuda.ptr(wa), L, N, K, F, nf, Dd, df, C,
+                   int(bf16), _cuda.ptr(dfeat), _cuda.ptr(dd), _cuda.ptr(dw),
+                   _cuda.ptr(dhs), _cuda.ptr(alpha_part),
+                   _cuda.stream_of(x))
+    return dfeat, dd, dw, dhs, alpha_part
+
+
+def wgrad_slabs(N: int):
+    """K3c's fixed slabs of rows, [(lo, hi), ...] in the order their
+    partials are summed: every row in exactly one, the last one partial
+    where N is not a multiple of K3C_SLAB."""
+    return [(lo, min(N, lo + K3C_SLAB)) for lo in range(0, N, K3C_SLAB)]
+
+
+def k3c_weight_grads(x, hs, dhs, alpha_part, *, bf16: bool):
+    """K3c: the weight gradients. Returns k3c_weight_grads_plain's flat
+    vector (params_grad_size floats)."""
+    if x.device.type == "cpu":
+        return k3c_weight_grads_plain(x, hs, dhs, alpha_part, bf16=bf16)
+    N, in0 = x.shape
+    L, _, C = dhs.shape
+    xb, ldx = _rows4(x)
+    hs, dhs, alpha_part = (t.detach().contiguous()
+                           for t in (hs, dhs, alpha_part))
+    dev = x.device
+    Sw = params_grad_size(L, in0, C) - C - 1
+    partial = torch.empty((max(len(wgrad_slabs(N)), 1), Sw),
+                          dtype=torch.float32, device=dev)
+    out = torch.empty((Sw + C + 1,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _k3_launch("fused_agg_bwd_wgrad", "K3c", _cuda.ptr(xb), ldx,
+                   _cuda.ptr(hs), _cuda.ptr(dhs), _cuda.ptr(alpha_part),
+                   alpha_part.shape[0], L, N, in0, C, int(bf16),
+                   _cuda.ptr(partial), _cuda.ptr(out), _cuda.stream_of(x))
+    return out
+
+
 def fused_block1_alpha_bwd(feat, d, w, block1, alpha_branch, g, *, K: int,
                            nf: int, df: int, bf16: bool):
-    """K3: the gradient of fused_block1_alpha for the cotangent g (M, C+1).
-    Same returns as fused_block1_alpha_bwd_plain, which it runs for CPU
-    tensors. `fused_block1_alpha_bwd.launches` counts kernel launches."""
+    """K3: the gradient of fused_block1_alpha for the cotangent g (M, C+1),
+    as K3a, K3b and K3c in turn. Same returns as
+    fused_block1_alpha_bwd_plain, which it runs for CPU tensors.
+    `fused_block1_alpha_bwd.launches` counts backward calls that launched
+    the kernels (one a call, for its three launches)."""
     ts = _check(feat, d, w, block1, alpha_branch, K)
     if feat.device.type == "cpu":
         return fused_block1_alpha_bwd_plain(feat, d, w, block1, alpha_branch,
                                             g, K=K, nf=nf, df=df, bf16=bf16)
     C, in0 = _check_cuda(ts + [g], feat, d, block1, K, nf, df,
-                         "fused_block1_alpha_bwd", max_k=32, max_in=288)
+                         "fused_block1_alpha_bwd", max_k=None,
+                         max_in=K3_MAX_IN)
     M, _, Fd = feat.shape
-    Dd = d.shape[-1]
-    L = len(block1)
     if tuple(g.shape) != (M, C + 1) or g.dtype != torch.float32:
         raise ValueError(f"g must be float32 ({M}, {C + 1}), got "
                          f"{g.dtype} {tuple(g.shape)}")
-    Wall = torch.cat([l_["w"].reshape(-1) for l_ in block1])
-    WTall = torch.cat([l_["w"].t().contiguous().reshape(-1) for l_ in block1])
-    Ball = torch.cat([l_["b"].reshape(-1) for l_ in block1])
-    wa = alpha_branch[0]["w"].reshape(-1).contiguous()
-    ba = alpha_branch[0]["b"].reshape(-1).contiguous()
-    feat, d, w, g = (t.detach().contiguous() for t in (feat, d, w, g))
-    dev = feat.device
-    S = in0 * C + (L - 1) * C * C + L * C + C + 1
-    n_tiles = -(-M // (32 // K))          # tiles of 32 // K points
-    n_blocks = min(n_tiles, torch.cuda.get_device_properties(
-        dev).multi_processor_count)
-    partial = torch.empty((max(n_blocks, 1), S), dtype=torch.float32,
-                          device=dev)
-    dfeat = torch.empty_like(feat)
-    dd = torch.empty_like(d)
-    dw = torch.empty_like(w)
-    dparams = torch.empty((S,), dtype=torch.float32, device=dev)
-    lib = _cuda.load("fused_agg_bwd")
-    with torch.cuda.device(dev):
-        err = lib.fused_block1_alpha_bwd(
-            _cuda.ptr(feat), _cuda.ptr(d), _cuda.ptr(w), _cuda.ptr(g),
-            _cuda.ptr(Wall), _cuda.ptr(WTall), _cuda.ptr(Ball), L,
-            _cuda.ptr(wa), _cuda.ptr(ba), M, K, Fd, nf, Dd, df, C, int(bf16),
-            n_blocks, _cuda.ptr(partial), _cuda.ptr(dfeat), _cuda.ptr(dd),
-            _cuda.ptr(dw), _cuda.ptr(dparams), _cuda.stream_of(feat))
+    x, hs, raw = k3a_recompute(feat, d, block1, alpha_branch, nf=nf, df=df,
+                               bf16=bf16)
     fused_block1_alpha_bwd.launches += 1
-    _cuda.check(lib, err, "fused_block1_alpha_bwd")
-    sizes = ([in0 * C] + [C * C] * (L - 1) + [C] * L + [C, 1])
-    parts = torch.split(dparams, sizes)
-    dblock1 = [{"w": parts[i].view(block1[i]["w"].shape),
-                "b": parts[L + i].view(block1[i]["b"].shape)}
-               for i in range(L)]
-    dalpha = [{"w": parts[2 * L].view(alpha_branch[0]["w"].shape),
-               "b": parts[2 * L + 1].view(alpha_branch[0]["b"].shape)}]
-    return dfeat, dd, dw, dblock1, dalpha
+    dfeat, dd, dw, dhs, alpha_part = k3b_data_grads(
+        x, hs, raw, w, g, block1, alpha_branch, K=K, nf=nf, df=df, F=Fd,
+        bf16=bf16)
+    flat = k3c_weight_grads(x, hs, dhs, alpha_part, bf16=bf16)
+    dblock1, dalpha = _split_params_grad(flat, block1, alpha_branch)
+    return (dfeat.view(feat.shape), dd.view(d.shape), dw.view(w.shape),
+            dblock1, dalpha)
+
+
+def fused_block1_alpha_bwd_resources(F: int, nf: int, Dd: int, df: int,
+                                     C: int, bf16: bool, device=None):
+    """K3a's, K3b's and K3c's registers a thread, shared memory a block
+    (bytes) and resident blocks an SM on the card: {"K3a": {...}, ...}."""
+    import ctypes
+    lib = _cuda.load("fused_agg_bwd")
+    vals = [(ctypes.c_int * 3)() for _ in range(3)]
+    with torch.cuda.device(device):
+        err = lib.fused_agg_bwd_occupancy(F, nf, Dd, df, C, int(bf16),
+                                          *(ctypes.byref(v) for v in vals))
+    _cuda.check(lib, err, "fused_agg_bwd_occupancy")
+    keys = ("registers", "smem_bytes", "blocks_per_sm")
+    return {k3: dict(zip(keys, (v[i] for v in vals)))
+            for i, k3 in enumerate(("K3a", "K3b", "K3c"))}
 
 
 class _FusedBlock1Alpha(torch.autograd.Function):

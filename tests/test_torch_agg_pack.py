@@ -1,5 +1,5 @@
-"""The fused aggregator's weight packing (ops/fused_agg.py `pack_block1`)
-and the numerics of its f32 mode, on the CPU.
+"""The fused aggregator's weight packing (ops/fused_agg.py `pack_block1`,
+and K3b's `pack_block1_bwd`) and the numerics of its f32 mode, on the CPU.
 
 K2's tile body (csrc/fused_agg_body.cuh) reads block1's weights in the
 layout `pack_block1` writes, wgmma's no-swizzle K-major planes: k-slices
@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from sgnerf_tpu_torch.ops.fused_agg import (SLICE_DEPTH, WGMMA_N,
-                                            pack_block1, tf32_rna)
+                                            pack_block1, pack_block1_bwd,
+                                            tf32_rna)
 
 
 def _block1(in0, C, n_layers, seed=0):
@@ -168,3 +169,68 @@ def test_packed_weights_are_kept_until_a_weight_changes():
     assert _packed_block1(other, 86, True)[0] is not p3
     assert torch.equal(_packed_block1(other, 86, False)[0],
                        pack_block1(other, 86, False)[0])
+
+
+def _desc_model(packed, ks, n_mats, k, bf16):
+    """The tile body's reading of packed k-slices, as its wgmma
+    descriptors address them (no swizzle, K-major): element (row r, column
+    n) of a slice lies in the 16-byte row n of the 8-column core matrix
+    n // 8 (SBO 128 bytes apart) of plane (r mod ks) // e (LBO one plane of
+    WGMMA_N columns apart), at (r mod e) within the row, e values to 16
+    bytes. f32 keeps tf32 hi in planes 0-1, lo in planes 2-3. -> (n_mats,
+    k, WGMMA_N) as read (f32: hi + lo)."""
+    e = 8 if bf16 else 4
+    flat = packed.view(torch.int16 if bf16 else torch.int32).numpy()
+    esize = 2 if bf16 else 4
+    per_slice = 64 * WGMMA_N // esize            # 16 KB a slice
+    r = np.arange(k)[:, None]
+    n = np.arange(WGMMA_N)[None, :]
+    out = []
+    for m in range(n_mats):
+        base = (m * (k // ks) + r // ks) * per_slice
+        byte = (((r % ks) // e) * WGMMA_N * 16 + (n // 8) * 128
+                + (n % 8) * 16 + (r % e) * esize)
+        idx = base + byte // esize
+        if bf16:
+            vals = torch.from_numpy(flat[idx]).view(torch.bfloat16).float()
+        else:
+            hi = torch.from_numpy(flat[idx]).view(torch.float32)
+            lo = torch.from_numpy(flat[idx + 2 * WGMMA_N * 4]).view(
+                torch.float32)
+            vals = (hi.double() + lo.double()).float()
+        out.append(vals)
+    return torch.stack(out)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("in0,C,n_layers", [(284, 256, 2), (86, 32, 3),
+                                            (172, 160, 1), (288, 256, 1)])
+def test_pack_bwd_reads_back_the_transposed_weights(bf16, in0, C, n_layers):
+    """K3b's B operands (pack_block1_bwd), read the way its descriptors
+    address them: W_{L-1}^T .. W_1^T, then W_0^T's columns past 256 (in0 >
+    256) and its first 256, each C deep, zero past its columns; bf16 the
+    rounded weights, f32 hi + lo within 2^-22 of them."""
+    block1 = _block1(in0, C, n_layers, seed=in0)
+    packed = pack_block1_bwd(block1, in0, bf16)
+    w0t = block1[0]["w"].t()
+    mats = [l_["w"].t() for l_ in reversed(block1[1:])]
+    if in0 > WGMMA_N:
+        mats.append(w0t[:, WGMMA_N:])
+    mats.append(w0t[:, :WGMMA_N])
+    ks = SLICE_DEPTH[bf16]
+    assert packed.numel() == len(mats) * (C // ks) * 64 * WGMMA_N // (
+        2 if bf16 else 4)
+    got = _desc_model(packed, ks, len(mats), C, bf16)
+    for m, want in enumerate(mats):
+        n = want.shape[1]
+        if bf16:
+            assert torch.equal(got[m, :, :n], want.to(torch.bfloat16).float())
+        else:
+            err = (got[m, :, :n].double() - want.double()).abs()
+            assert bool((err <= 2.0 ** -22 * want.double().abs()).all())
+        assert not got[m, :, n:].any()
+
+
+def test_pack_bwd_refuses_inputs_past_288():
+    with pytest.raises(ValueError, match="block1 input <= 288"):
+        pack_block1_bwd(_block1(300, 256, 2), 300, True)

@@ -8,6 +8,8 @@ The binding comparison at the main path's shapes is chip_smoke.py's
 phases 5, 7, 12 and 14; these run the same checks at small shapes (odd M,
 masked rows, K and SR that do not divide the kernels' tiles), plus
 determinism and the wrappers' refusals."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -16,7 +18,10 @@ from sgnerf_tpu_torch.ops.fused_agg import (
     fused_block1_alpha, fused_block1_alpha_bwd, fused_block1_alpha_bwd_plain,
     fused_block1_alpha_color, fused_block1_alpha_color_march,
     fused_block1_alpha_color_march_plain, fused_block1_alpha_color_plain,
-    fused_block1_alpha_plain, color_tail_plain, march_tail_plain)
+    fused_block1_alpha_plain, color_tail_plain, k3a_recompute,
+    k3a_recompute_plain, k3b_data_grads, k3b_data_grads_plain,
+    k3c_weight_grads, k3c_weight_grads_plain, k2_supports, k3_supports,
+    k4_supports, march_tail_plain)
 from sgnerf_tpu_torch.ops.pallas_gather import (gather_rows_pallas,
                                                 gather_rows_staged,
                                                 sorted_segment_sum)
@@ -122,7 +127,9 @@ def test_k2_kernel_matches_plain(dev, bf16, M, K, C, n_layers, F, Dd):
 
 # K3 tolerance vs its plain version, per output tensor, relative to the
 # largest magnitude of the plain gradient: summation order (f32), flipped
-# bf16 roundings of product inputs (bf16)
+# bf16 roundings of product inputs (bf16). K3 is the gradient of the
+# forward that ran: the plain K3 takes K3a's LeakyReLU branch where its
+# own recompute lies on the other one (chip_smoke.py K3_TOL)
 K3_TOL = {False: 2e-3, True: 3e-2}
 
 
@@ -133,26 +140,116 @@ def _flat(grads):
 
 
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("M,K,n_layers", [(501, 8, 2), (77, 3, 1),
-                                          (300, 8, 3)])
-def test_k3_kernel_matches_plain(dev, bf16, M, K, n_layers):
-    """Odd M (a ragged last tile), masked rows (w = 0), K not dividing the
-    32-row tile, 1-3 block1 layers."""
-    feat, d, w, block1, alpha = _agg_inputs(dev, M=M, K=K, n_layers=n_layers)
-    w = w * _masks(w.shape, dev, seed=M)
-    C = block1[0]["w"].shape[1]
+@pytest.mark.parametrize("M,K,n_layers,C,F,Dd,masked", [
+    (501, 8, 2, 256, 32, 6, False),   # canonical widths, a ragged last tile
+    (77, 3, 1, 256, 32, 6, False),    # K not dividing the tiles
+    (300, 8, 3, 256, 32, 6, False),   # 3 layers; 2 slabs, the last partial
+    (1, 8, 2, 256, 32, 6, False),     # M = 1: one ragged tile and slab
+    (130, 8, 2, 256, 32, 6, True),    # every w = 0
+    (600, 8, 2, 256, 32, 6, False),   # 3 slabs of K3c, the last partial
+    (200, 8, 2, 32, 8, 3, False),     # 86-deep first layer, C = 32, one dx pass
+    (130, 16, 2, 160, 16, 6, False),  # 172-deep first layer, C = 160
+])
+def test_k3_kernel_matches_plain(dev, bf16, M, K, n_layers, C, F, Dd, masked):
+    """Odd M (a ragged last tile), masked rows (w = 0), K = 3 not dividing
+    the tiles, 1-3 block1 layers, M = 1, all of w masked, and K3c's last
+    split-K slab partial; narrower widths take one dx product."""
+    feat, d, w, block1, alpha = _agg_inputs(dev, M=M, K=K, n_layers=n_layers,
+                                            C=C, F=F, Dd=Dd)
+    w = w * _masks(w.shape, dev, seed=M) * (0.0 if masked else 1.0)
     g = torch.randn(M, C + 1, device=dev)
     n0 = fused_block1_alpha_bwd.launches
     got = _flat(fused_block1_alpha_bwd(feat, d, w, block1, alpha, g, K=K,
                                        nf=3, df=5, bf16=bf16))
     assert fused_block1_alpha_bwd.launches == n0 + 1
+    hs_k = k3a_recompute(feat, d, block1, alpha, nf=3, df=5, bf16=bf16)[1]
     ref = _flat(fused_block1_alpha_bwd_plain(feat, d, w, block1, alpha, g,
-                                             K=K, nf=3, df=5, bf16=bf16))
+                                             K=K, nf=3, df=5, bf16=bf16,
+                                             branches=hs_k))
     torch.cuda.synchronize()
     for i, (a, b) in enumerate(zip(got, ref)):
         assert a.shape == b.shape, i
         err = float((a - b).abs().max())
         assert err <= K3_TOL[bf16] * float(b.abs().max()) + 1e-7, (i, err)
+
+
+# K3's launches vs their plain statements, on the same inputs: K3a's saved
+# activations (f32: K2's 3xTF32 error; bf16: a flipped bf16 rounding), K3b's
+# data gradients (K3_TOL, as K3), K3c's weight gradients (IEEE f32 products
+# of the same operands on both sides: the summation order only)
+K3A_TOL = {False: dict(atol=1e-4, rtol=1e-4), True: dict(atol=2e-2, rtol=1e-2)}
+K3C_TOL = 1e-5
+
+
+def _k3_inputs(dev, M, K=8, n_layers=2, seed=0):
+    feat, d, w, block1, alpha = _agg_inputs(dev, M=M, K=K, n_layers=n_layers)
+    w = w * _masks(w.shape, dev, seed=seed)
+    C = block1[0]["w"].shape[1]
+    g = torch.randn(M, C + 1, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(seed))
+    return feat, d, w, block1, alpha, g
+
+
+def _rel_errs(got, ref):
+    return [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for a, b in zip(got, ref)]
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_k3a_kernel_matches_plain_and_k2(dev, bf16):
+    """K3a's x, h and raw against the plain recompute; and its last h,
+    weighted and summed over K in order as K2 sums it, equals K2's
+    features bit for bit (K3a runs K2's tile body: the backward reads the
+    forward's activations)."""
+    M, K = 301, 8
+    feat, d, w, block1, alpha, _ = _k3_inputs(dev, M)
+    kw = dict(nf=3, df=5, bf16=bf16)
+    got = k3a_recompute(feat, d, block1, alpha, **kw)
+    ref = k3a_recompute_plain(feat, d, block1, alpha, **kw)
+    torch.testing.assert_close(got[0], ref[0], atol=1e-5, rtol=0.0)
+    for a, b in zip(got[1:], ref[1:]):
+        torch.testing.assert_close(a, b, **K3A_TOL[bf16])
+    fa, _ = fused_block1_alpha(feat, d, w, block1, alpha, K=K, **kw)
+    hw = got[1][-1].view(M, K, -1) * w[..., None]
+    s = torch.zeros_like(fa)
+    for k in range(K):
+        s = s + hw[:, k]
+    assert torch.equal(s, fa)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_k3b_kernel_matches_plain(dev, bf16):
+    """K3b on the plain K3a's activations: d_feat, d_d, d_w, every dh and
+    the sum of its tile partials of [dwa | dba] against the plain chain."""
+    M, K = 301, 8
+    feat, d, w, block1, alpha, g = _k3_inputs(dev, M, n_layers=3, seed=1)
+    x, hs, raw = k3a_recompute_plain(feat, d, block1, alpha, nf=3, df=5,
+                                     bf16=bf16)
+    kw = dict(K=K, nf=3, df=5, F=feat.shape[-1], bf16=bf16)
+    got = list(k3b_data_grads(x, hs, raw, w, g, block1, alpha, **kw))
+    ref = list(k3b_data_grads_plain(x, hs, raw, w, g, block1, alpha, **kw))
+    assert got[4].shape[0] == -(-M * K // (128 if bf16 else 64))
+    got[4], ref[4] = got[4].sum(0), ref[4].sum(0)
+    rel = _rel_errs(got, ref)
+    assert max(rel) <= K3_TOL[bf16], rel
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("N,in0,C,L", [(4100, 284, 256, 2), (1000, 86, 32, 3),
+                                       (37, 172, 160, 1)])
+def test_k3c_kernel_matches_plain(dev, bf16, N, in0, C, L):
+    """K3c on seeded operands: 3 slabs (the last partial), first-layer
+    depths not a multiple of the 128-row output tile or of 4, one slab of
+    37 rows."""
+    gen = torch.Generator(device=dev).manual_seed(N)
+    x = torch.randn(N, in0, device=dev, generator=gen)
+    hs = torch.randn(L, N, C, device=dev, generator=gen)
+    dhs = torch.randn(L, N, C, device=dev, generator=gen)
+    part = torch.randn(5, C + 1, device=dev, generator=gen)
+    got = k3c_weight_grads(x, hs, dhs, part, bf16=bf16)
+    ref = k3c_weight_grads_plain(x, hs, dhs, part, bf16=bf16)
+    err = float((got - ref).abs().max())
+    assert err <= K3C_TOL * float(ref.abs().max()), err
 
 
 def test_k3_is_deterministic(dev):
@@ -418,3 +515,162 @@ def test_k7_backward_is_deterministic_and_matches_index_add(dev):
     assert float((grads[0] - ref).abs().max()) <= 1e-6 * max(
         1.0, float(ref.abs().max()))
     assert torch.equal(sorted_segment_sum(idx, g, 500), grads[0])
+
+
+# ---- K2's f32 mode and K3 against the JAX tests' own tolerances
+# (tests/test_fused_agg.py), at those tests' input laws and shapes. The
+# weights come from the port's seeded init (the same law as the JAX init;
+# the card's machine has no jax). The plain side runs IEEE f32 products:
+# the `dev` fixture turns TF32 off for cuBLAS.
+
+
+def _jax_test_agg_inputs(dev, seed, B=1, R=7, SR=5, K=8, F=32):
+    """tests/test_fused_agg.py `_agg_inputs`: the same draws in the same
+    order, as the port's aggregate() keywords (it takes no colour,
+    direction or label inputs; their draws are made and dropped)."""
+    rng = np.random.default_rng(seed)
+
+    def mk(shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    mask = torch.from_numpy(rng.random((B, R, SR, K)) < 0.5)
+    emb = mk((B, R, SR, K, F)) * 0.2
+    mk((B, R, SR, K, 3)), mk((B, R, SR, K, 3))       # colour, direction
+    kw = dict(sampled_embedding=emb,
+              sampled_conf=mk((B, R, SR, K, 1)).abs(),
+              sampled_xyz=mk((B, R, SR, K, 3)),
+              sampled_xyz_pers=mk((B, R, SR, K, 3)),
+              sample_pnt_mask=mask,
+              sample_loc=mk((B, R, SR, 3)),
+              sample_loc_w=mk((B, R, SR, 3)),
+              sample_ray_dirs=mk((B, R, SR, 3)))
+    kw = {k: v.to(dev) for k, v in kw.items()}
+    kw.update(Rw2c=None, vsize=(0.008,) * 3)
+    return kw
+
+
+def _agg_cfgs():
+    from sgnerf_tpu_torch.models.aggregator import AggregatorConfig
+    cfg = AggregatorConfig()
+    return cfg, dataclasses.replace(cfg, fused_mlp="cuda")
+
+
+def test_k2_f32_meets_the_jax_block_tolerances(dev):
+    """F9, test_fused_agg.py::test_fused_pads_nonmultiple_rows's inputs
+    (M = 35, d * 0.01): features within 3e-5 and alpha within 3e-6 of the
+    IEEE f32 statement."""
+    from sgnerf_tpu_torch.models.aggregator import init_aggregator_params
+    cfg, _ = _agg_cfgs()
+    rng = np.random.default_rng(2)
+    M, K, F = 35, 8, 32
+    feat = torch.from_numpy(rng.normal(size=(M, K, F)).astype(np.float32)) * 0.2
+    d = torch.from_numpy(rng.normal(size=(M, K, 6)).astype(np.float32)) * 0.01
+    w = torch.from_numpy(rng.random((M, K)).astype(np.float32))
+    p = init_aggregator_params(3, cfg, device=dev)
+    args = (feat.to(dev), d.to(dev), w.to(dev), p["block1"], p["alpha_branch"])
+    kw = dict(K=K, nf=cfg.num_feat_freqs, df=abs(cfg.dist_xyz_freq),
+              bf16=False)
+    fa, al = fused_block1_alpha(*args, **kw)
+    rfa, ral = fused_block1_alpha_plain(*args, **kw)
+    e_fa, e_al = (float((a - b).abs().max()) for a, b in ((fa, rfa),
+                                                          (al, ral)))
+    print(f"F9 K2 f32: features {e_fa:.3e} (limit 3e-5), alpha {e_al:.3e} "
+          "(limit 3e-6)")
+    assert e_fa <= 3e-5 and e_al <= 3e-6, (e_fa, e_al)
+
+
+def test_aggregate_f32_kernel_meets_the_jax_forward_tolerance(dev):
+    """F9, test_fused_agg.py::test_fused_matches_xla_forward's inputs:
+    aggregate()'s decoded output through K2 within 3e-6 of the un-fused
+    path, ray_valid equal."""
+    from sgnerf_tpu_torch.models.aggregator import (aggregate,
+                                                    init_aggregator_params)
+    cfg, fused = _agg_cfgs()
+    kw = _jax_test_agg_inputs(dev, 0)
+    p = init_aggregator_params(0, cfg, device=dev)
+    n0 = fused_block1_alpha.launches
+    got = aggregate(p, fused, **kw)
+    assert fused_block1_alpha.launches == n0 + 1
+    ref = aggregate(p, cfg, **kw)
+    err = float((got[0] - ref[0]).abs().max())
+    print(f"F9 aggregate f32: decoded {err:.3e} (limit 3e-6)")
+    assert torch.equal(got[1], ref[1])
+    assert err <= 3e-6, err
+
+
+def _agg_grads(p, cfg, kw):
+    """aggregate()'s decoded output, and the gradients of sum(decoded^2)
+    for every parameter and the embedding."""
+    from sgnerf_tpu_torch.models.aggregator import aggregate
+    emb = kw["sampled_embedding"].clone().requires_grad_(True)
+    ts = [t.detach().clone().requires_grad_(True)
+          for v in p.values() for l_ in v for t in l_.values()]
+    it = iter(ts)
+    params = {k: [{n: next(it) for n in l_} for l_ in v]
+              for k, v in p.items()}
+    dec = aggregate(params, cfg, **dict(kw, sampled_embedding=emb))[0]
+    return dec.detach(), torch.autograd.grad((dec ** 2).sum(), ts + [emb])
+
+
+def test_k3_f32_meets_the_jax_gradient_tolerance(dev):
+    """test_fused_agg.py::test_fused_gradients_match_xla's inputs (rng 1,
+    R = 3, SR = 4), loss sum(decoded^2): the gradients of every parameter
+    and of the embedding through K2 + K3 within atol 1e-5 of the un-fused
+    path's."""
+    from sgnerf_tpu_torch.models.aggregator import (aggregate,
+                                                    init_aggregator_params)
+    cfg, fused = _agg_cfgs()
+    kw = _jax_test_agg_inputs(dev, 1, R=3, SR=4)
+    p = init_aggregator_params(0, cfg, device=dev)
+    n0 = fused_block1_alpha_bwd.launches
+    got = _agg_grads(p, fused, kw)[1]
+    assert fused_block1_alpha_bwd.launches == n0 + 1
+    ref = _agg_grads(p, cfg, kw)[1]
+    err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    print(f"K3 f32 at test_fused_gradients_match_xla's inputs: max |diff| "
+          f"{err:.3e} (limit 1e-5)")
+    assert err <= 1e-5, err
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("K", [1, 2, 33])
+def test_gate_runs_every_k_and_matches_the_unfused_path(dev, bf16, K):
+    """F8: --fused_mlp with --fused_color on at K 1, 2 and 33. The gate
+    picks K4 where k4_supports (f32 K 2), else K2 with the plain colour
+    head (K4's block exceeds shared memory at K 1, and at K 2 in bf16; K4
+    takes K <= 32); forward and backward run and match the un-fused path
+    (K2's and K3's tolerances)."""
+    from sgnerf_tpu_torch.models.aggregator import (AggregatorConfig,
+                                                    init_aggregator_params)
+    cfg = AggregatorConfig(compute_dtype="bfloat16" if bf16 else "float32")
+    fused = dataclasses.replace(cfg, fused_mlp="cuda", fused_color=True)
+    kw = _jax_test_agg_inputs(dev, 3, R=6, SR=4, K=K)
+    p = init_aggregator_params(0, cfg, device=dev)
+    k4 = k4_supports(K=K, F=32, Dd=6, nf=3, df=5, C=256, bf16=bf16, vf=4,
+                     Nh=128, n_clayers=4, device=dev)
+    assert k4 == (K == 2 and not bf16)
+    n = (fused_block1_alpha_color.launches, fused_block1_alpha.launches,
+         fused_block1_alpha_bwd.launches)
+    dec, got = _agg_grads(p, fused, kw)
+    # K4's backward re-runs K2 for the reduced features
+    assert (fused_block1_alpha_color.launches - n[0],
+            fused_block1_alpha.launches - n[1],
+            fused_block1_alpha_bwd.launches - n[2]) == (int(k4), 1, 1)
+    rdec, ref = _agg_grads(p, cfg, kw)
+    torch.testing.assert_close(dec, rdec, **K2_TOL[bf16])
+    rel = _rel_errs(got, ref)
+    assert max(rel) <= K3_TOL[bf16], rel
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_k4_block_fits_at_the_canonical_widths(dev, bf16):
+    """The library's shared-memory query, as the gate asks it: K4's block
+    fits from K 3 in bf16 and from K 2 in f32 (64-row tiles halve the
+    colour head's scratch), K5's at SR 24 and K 8; K2's and K3's at every
+    K the gate sends them."""
+    canon = dict(F=32, Dd=6, nf=3, df=5, C=256, bf16=bf16, device=dev)
+    head = dict(vf=4, Nh=128, n_clayers=4)
+    fits = [K for K in range(1, 40) if k4_supports(K=K, **canon, **head)]
+    assert fits == list(range(3 if bf16 else 2, 33))
+    assert k4_supports(K=8, SR=24, **canon, **head)
+    for K in (1, 2, 8, 33, 64):
+        assert k2_supports(K=K, **canon) and k3_supports(K=K, **canon)

@@ -1,7 +1,9 @@
 """Kernel K3's plain version (sgnerf_tpu_torch/ops/fused_agg.py
-`fused_block1_alpha_bwd`, CPU tensors) vs the JAX package's fused backward
+`fused_block1_alpha_bwd`, CPU tensors: the composition of K3a's, K3b's and
+K3c's plain statements) vs the JAX package's fused backward
 `_pallas_backward` (Pallas, interpret mode on the CPU) and vs jax.vjp of
-its un-fused statement `_xla_ref`.
+its un-fused statement `_xla_ref`; and vs autograd of the plain forward,
+bit for bit.
 
 Tolerances: f32 rtol 2e-3, atol 2e-5, those of tests/test_fused_agg.py:150
 (the two sides sum in different orders). bf16 rounds every product input;
@@ -21,7 +23,11 @@ from sgnerf_tpu.ops.fused_agg import fused_block1_alpha as jax_fused
 from sgnerf_tpu_torch.models.params import params_from_jax
 from sgnerf_tpu_torch.ops.fused_agg import (fused_block1_alpha,
                                             fused_block1_alpha_bwd,
-                                            fused_block1_alpha_bwd_plain)
+                                            fused_block1_alpha_bwd_plain,
+                                            k3a_recompute_plain,
+                                            k3b_data_grads_plain,
+                                            k3c_weight_grads_plain,
+                                            params_grad_size)
 
 K, NF, DF = 8, 3, 5
 
@@ -147,3 +153,86 @@ def test_jax_forward_matches_for_the_same_inputs(params):
         tp["block1"], tp["alpha_branch"], K=K, nf=NF, df=DF, bf16=False)
     np.testing.assert_allclose(tfa.numpy(), np.asarray(fa), atol=3e-5)
     np.testing.assert_allclose(tal.numpy(), np.asarray(al), atol=3e-6)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_plain_k3_stages_compose_to_autograd(params, bf16):
+    """K3a's, K3b's and K3c's plain statements, composed, give autograd's
+    gradients of the plain forward bit for bit: every output, both modes
+    (the chain rule in autograd's operation order, softplus' in its
+    form)."""
+    feat, d, w, g = _inputs(7, M=45)
+    tp = params_from_jax(params)
+    weights = [l_[k].clone().requires_grad_(True)
+               for l_ in tp["block1"] + tp["alpha_branch"] for k in "wb"]
+    block1 = [{"w": weights[0], "b": weights[1]},
+              {"w": weights[2], "b": weights[3]}]
+    alpha = [{"w": weights[4], "b": weights[5]}]
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (feat, d, w)]
+    C = g.shape[1] - 1
+    fa, al = fused_block1_alpha(*leaves, block1, alpha, K=K, nf=NF, df=DF,
+                                bf16=bf16)
+    ref = torch.autograd.grad((fa, al), leaves + weights,
+                              grad_outputs=(torch.from_numpy(g[:, :C]),
+                                            torch.from_numpy(g[:, C:])))
+    got = _port_grads(feat, d, w, params, g, bf16)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert torch.equal(a, b), i
+
+
+def test_plain_k3_stage_shapes_and_flat_layout(params):
+    """The stages' interfaces: K3a's x (N, in0), hs (L, N, C), raw (N,);
+    K3b's per-row gradients, dhs and one [dwa | dba] partial row; K3c's
+    flat gradient in params_grad_size's layout, whose last C + 1 floats
+    are alpha_part's sum and whose bias block is dhs summed over rows."""
+    feat, d, w, g = _inputs(8, M=20)
+    tp = params_from_jax(params)
+    t = [torch.from_numpy(a) for a in (feat, d, w, g)]
+    x, hs, raw = k3a_recompute_plain(t[0], t[1], tp["block1"],
+                                     tp["alpha_branch"], nf=NF, df=DF,
+                                     bf16=False)
+    N, C, L = 20 * K, 256, 2
+    assert x.shape == (N, 284) and hs.shape == (L, N, C) and raw.shape == (N,)
+    dfeat, dd, dw, dhs, part = k3b_data_grads_plain(
+        x, hs, raw, t[2], t[3], tp["block1"], tp["alpha_branch"], K=K,
+        nf=NF, df=DF, F=32, bf16=False)
+    assert (dfeat.shape, dd.shape, dw.shape, dhs.shape, part.shape) == (
+        (N, 32), (N, 6), (N,), (L, N, C), (1, C + 1))
+    flat = k3c_weight_grads_plain(x, hs, dhs, part, bf16=False)
+    assert flat.shape == (params_grad_size(L, 284, C),)
+    assert torch.equal(flat[-(C + 1):], part.sum(0))
+    off_b = 284 * C + C * C
+    assert torch.equal(flat[off_b:off_b + L * C], dhs.sum(1).reshape(-1))
+    # the masked rows (w = 0) carry no cotangent into the chain
+    masked = t[2].reshape(-1) == 0
+    assert masked.any() and not dhs[:, masked].any()
+
+
+def test_plain_k3_takes_the_given_branches(params):
+    """fused_block1_alpha_bwd_plain(branches=): with its own recompute's
+    activations the gradient is unchanged bit for bit; with one activation
+    moved to the other LeakyReLU branch, only its row's per-row gradients
+    change, and that row's gradient is the plain chain with the slope of
+    the branch given."""
+    feat, d, w, g = _inputs(9, M=12)
+    tp = params_from_jax(params)
+    t = [torch.from_numpy(a) for a in (feat, d, w, g)]
+    kw = dict(K=K, nf=NF, df=DF, bf16=False)
+    args = (t[0], t[1], t[2], tp["block1"], tp["alpha_branch"], t[3])
+    ref = fused_block1_alpha_bwd_plain(*args, **kw)
+    x, hs, raw = k3a_recompute_plain(t[0], t[1], tp["block1"],
+                                     tp["alpha_branch"], nf=NF, df=DF,
+                                     bf16=False)
+    same = fused_block1_alpha_bwd_plain(*args, branches=hs, **kw)
+    for a, b in zip(ref[:3], same[:3]):
+        assert torch.equal(a, b)
+    row, col = 29, 7                       # point 3, neighbour 5
+    moved = hs.clone()
+    moved[0, row, col] = -1e-7 if hs[0, row, col] >= 0 else 1e-7
+    got = fused_block1_alpha_bwd_plain(*args, branches=moved, **kw)
+    dfeat, ref_dfeat = got[0].reshape(-1, 32), ref[0].reshape(-1, 32)
+    changed = (dfeat != ref_dfeat).any(-1).nonzero().flatten().tolist()
+    assert changed == [row]
+    want = k3b_data_grads_plain(x, moved, raw, t[2], t[3], tp["block1"],
+                                tp["alpha_branch"], F=32, **kw)[0]
+    assert torch.equal(dfeat, want)
