@@ -19,15 +19,20 @@ fine-tune train step (the flags of scene0113_00_default.sh). Phases:
      image must be finite and most rays must find neighbours; then 512
      rays rendered with the kernel path and the un-fused path must agree;
   5. K1 and K2 against their plain versions on the inputs captured from
-     one chunk of that frame (K1 ids equal; K2 within tolerance in f32
-     and bf16), timed with CUDA events; K2's bound in each mode against
-     the unit it runs on (bf16: the bf16 tensor cores; f32: three TF32
-     products), the cuBLAS time of block1's bf16 products at the chunk's
-     shape as a yardstick, K2's registers, shared memory and blocks an
-     SM, and the count of tensor-core instructions in its SASS; then K2's
-     f32 mode at tests/test_fused_agg.py's inputs against that file's own
-     limits (features 3e-5, alpha 3e-6, aggregate()'s decoded output
-     3e-6);
+     one chunk of that frame (K1 ids equal, and a rerun the same bits; K2
+     within tolerance in f32 and bf16), timed with CUDA events (K1 one
+     call, as every kernel, and beside it the device time of back-to-back
+     launches; its share of the bound, K1's and K6's registers, shared
+     memory and blocks an SM, the SHFL and VOTE count of each
+     instantiation's SASS; then the cache-row gather in front of K1,
+     nbr_packed[slot], timed alone); K2's bound in each
+     mode against the unit it runs on (bf16: the bf16 tensor cores; f32:
+     three TF32 products), the cuBLAS time of block1's bf16 products at
+     the chunk's shape as a yardstick, K2's registers, shared memory and
+     blocks an SM, and the count of tensor-core instructions in its
+     SASS; then K2's f32 mode at tests/test_fused_agg.py's inputs against
+     that file's own limits (features 3e-5, alpha 3e-6, aggregate()'s
+     decoded output 3e-6);
   6. the train step at full width (1024 random rays of the phase-4 camera,
      seeded target colours): 8 SceneModel.optimize steps with the counters
      reset just before; K2 and K3 must launch once a step, K1 never (f32
@@ -67,11 +72,13 @@ fine-tune train step (the flags of scene0113_00_default.sh). Phases:
      rays, which cannot overflow: the image agrees with the phase-4 frame;
  12. K4, K5 (f32 and bf16) and K6 against their plain versions on the
      inputs captured from the first chunk of phases 9-11, timed with CUDA
-     events; in bf16 K4 also against the plain colour head run on the K2
-     kernel's reduced rows and K5 against the plain march run on K4's
-     outputs, each at a limit below the gap between the kernel's bf16 and
-     f32 modes, and the plain colour head's per-layer bf16 rounding flips
-     between K2's and the plain reduced rows;
+     events (K6 as K1 in phase 5: a rerun, device time beside the one
+     call, share of the bound, resources); in bf16 K4 also against
+     the plain colour head run on the K2 kernel's reduced rows and K5
+     against the plain march run on K4's outputs, each at a limit below
+     the gap between the kernel's bf16 and f32 modes, and the plain
+     colour head's per-layer bf16 rounding flips between K2's and the
+     plain reduced rows;
  13. the train step of phase 6 with --fused_color on: one step's loss and
      gradients equal phase 6's kernel path (K2 + the colour head outside
      + K3) from the same state and noise; then 3 steps, each launching K4,
@@ -264,6 +271,38 @@ def cuda_ms(fn, reps=10):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def knn_resources_and_sass(res, sass=True):
+    """Phases 5 and 12: K1's and K6's registers, shared memory and blocks an
+    SM; then (sass) the SHFL and VOTE instructions of each instantiation
+    in the SASS of csrc/fused_knn.cu (N keys a lane; "v": the 16-byte
+    path the main path takes at C = 64)."""
+    import re
+    from sgnerf_tpu_torch.ops import _cuda
+    for k in ("K1", "K6"):
+        r = res[k]
+        log(f"  {k} resources: {r['registers']} registers a thread, "
+            f"{r['smem_bytes']} B of shared memory a block, "
+            f"{r['blocks_per_sm']} block(s) an SM")
+    if not sass:
+        return
+    if _cuda.cuobjdump() is None:
+        log("  SASS: cuobjdump not found, not read")
+        return
+    counts = _cuda.sass_counts(_cuda.build("fused_knn"), ("SHFL", "VOTE"))
+    by_kernel = {"K1": {}, "K6": {}}
+    for fn, c in counts.items():
+        m = re.search(r"fused_knn_(tiled_)?kernelILi(\d)ELb(\d)E", fn)
+        if m:
+            key = m.group(2) + ("v" if m.group(3) == "1" else "")
+            by_kernel["K6" if m.group(1) else "K1"][key] = (c["SHFL"],
+                                                            c["VOTE"])
+    for k, v in by_kernel.items():
+        log(f"  {k} SASS (SHFL, VOTE) by instantiation: "
+            f"{dict(sorted(v.items()))}")
+    assert all("8v" in v and v["8v"][0] > 0 for v in by_kernel.values()), \
+        by_kernel
 
 
 def bound(nbytes, flops, peak_flops):
@@ -526,6 +565,14 @@ def main():
     captured = {}
     knn_fn = capture_first_call(query_mod, "fused_knn_select", captured)
     agg_fn = capture_first_call(agg_mod, "fused_block1_alpha", captured)
+    take3d = query_mod.take3d
+
+    def take3d_slot(table, coords, dims):       # the cache-row gather's slot
+        out = take3d(table, coords, dims)
+        if table is model.grid.dil_slot and "slot" not in captured:
+            captured["slot"] = out
+        return out
+    query_mod.take3d = take3d_slot
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -534,6 +581,7 @@ def main():
     frame_s = time.perf_counter() - t0
     launches = read_launches()
     query_mod.fused_knn_select, agg_mod.fused_block1_alpha = knn_fn, agg_fn
+    query_mod.take3d = take3d
     n_rays = W_IMG * H_IMG
     hit_share = float(np.mean(np.any(col != 1.0, axis=-1)))
     log(f"phase 4: frame {W_IMG}x{H_IMG} in {frame_s * 1e3:.1f} ms "
@@ -574,7 +622,7 @@ def main():
     assert torch.isfinite(a).all() and render_err <= RENDER_ATOL
 
     # ---- 5. K1 and K2 vs their plain versions on one chunk's inputs
-    records = {"K1": phase5_k1(captured, launches),
+    records = {"K1": phase5_k1(captured, launches, model.grid.nbr_packed),
                "K2": phase5_k2(captured, launches)}
     phase5_f9(torch.device("cuda"))
     # phase 11 holds K6's ids to K1's on this chunk: K1's inputs wait on
@@ -620,9 +668,16 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
-def phase5_k1(captured, launches):
+def phase5_k1(captured, launches, nbr_packed):
+    """Phase 5, K1: ids bit-equal to the plain version's and on a rerun; its
+    time (one call, as every kernel is timed; beside it the device time of
+    back-to-back launches), its share of the bound, resources and SASS;
+    then the cache-row gather in front of it (query.py, nbr_packed[slot])
+    timed alone."""
     import torch
-    from sgnerf_tpu_torch.ops.fused_knn import (fused_knn_select,
+    from sgnerf_tpu_torch.ops import _cuda
+    from sgnerf_tpu_torch.ops.fused_knn import (fused_knn_resources,
+                                                fused_knn_select,
                                                 fused_knn_select_plain)
     args, kwargs = captured["fused_knn_select"]
     with torch.inference_mode():
@@ -631,16 +686,38 @@ def phase5_k1(captured, launches):
         torch.cuda.synchronize()
         id_err = float((ids - ref).abs().max())
         assert torch.equal(ids, ref), int((ids != ref).sum())
+        assert torch.equal(fused_knn_select(*args, **kwargs), ids)
         ms = cuda_ms(lambda: fused_knn_select(*args, **kwargs))
+        dev_ms = _cuda.device_ms(lambda: fused_knn_select(*args, **kwargs))
         plain_ms = cuda_ms(lambda: fused_knn_select_plain(*args, **kwargs))
     rows, delta, ok = args[:3]
     M, C, K = rows.shape[0], kwargs["C"], kwargs["K"]
     # d2 of every candidate: 3 differences, 3 squares, 2 sums
     bound_ms, bound_by = bound(nbytes(rows, delta, ok) + M * K * 4,
                                8.0 * M * C, F32_FLOPS)
-    log(f"phase 5: K1 fused_knn_select M={M} C={C} K={K}: ids equal; "
-        f"{ms:.3f} ms vs plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
-        f"({bound_by})")
+    found = float((ids >= 0).sum(dim=1).float().mean())
+    log(f"phase 5: K1 fused_knn_select M={M} C={C} K={K}: ids equal, a "
+        f"rerun the same bits; {ms:.4f} ms (one call) vs plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}) = "
+        f"{bound_ms / ms:.1%} of it; device time back to back {dev_ms:.4f} "
+        f"ms ({bound_ms / dev_ms:.1%}); {found:.2f} of K ids found a point")
+    knn_resources_and_sass(fused_knn_resources(C, 160, rows.device))
+    slot = captured["slot"].reshape(-1)
+    assert slot.numel() == M, (slot.numel(), M)
+    max_d = nbr_packed.shape[0]
+    with torch.inference_mode():
+        gathered = nbr_packed[slot.clamp(0, max_d - 1).long()]
+        assert torch.equal(gathered.reshape(M, -1), rows)
+        g_ms = cuda_ms(lambda: nbr_packed[slot.clamp(0, max_d - 1).long()])
+        g_dev = _cuda.device_ms(
+            lambda: nbr_packed[slot.clamp(0, max_d - 1).long()])
+    g_bound, _ = bound(nbytes(slot) + 2 * nbytes(rows), 0, F32_FLOPS)
+    log(f"phase 5: the cache-row gather in front of K1 (nbr_packed[slot], "
+        f"{M} rows of {rows.shape[1] * 2} B from {max_d}): {g_ms:.4f} ms "
+        f"(one call; device time back to back {g_dev:.4f} ms), bound "
+        f"{g_bound:.4f} ms (bytes: the slots and rows read, the rows "
+        f"written) = {g_bound / g_ms:.1%}; K1 reading rows by slot would "
+        f"not write and read back {2 * nbytes(rows) / 1e6:.1f} MB")
     return {"name": "fused_knn_select", "route": "cuda",
             "source": "sgnerf_tpu_torch/csrc/fused_knn.cu",
             "replaces": "sgnerf_tpu/ops/fused_knn.py:232",
@@ -737,12 +814,10 @@ def phase5_k2_yardsticks(args, kwargs):
             f"registers a thread, {res['smem_bytes']} B of shared memory "
             f"a block, {res['blocks_per_sm']} block(s) of 256 threads an SM")
     lib = _cuda.build("fused_agg")
-    dump = shutil.which("cuobjdump") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    if os.path.exists(dump):
-        sass = subprocess.run([dump, "-sass", lib], capture_output=True,
-                              text=True).stdout
-        counts = {op: sass.count(op) for op in ("HGMMA", "HMMA")}
+    if _cuda.cuobjdump() is not None:
+        ops = ("HGMMA", "HMMA")
+        by_fn = _cuda.sass_counts(lib, ops).values()
+        counts = {op: sum(c[op] for c in by_fn) for op in ops}
         log(f"phase 5: K2 SASS ({os.path.basename(lib)}): tensor-core "
             f"instructions {counts}")
         assert counts["HGMMA"] + counts["HMMA"] > 0, counts
@@ -1001,7 +1076,7 @@ def phase12_k4_k6(paths):
     """Phase 12: K4, K5 and K6 against their plain versions on the first
     chunk's inputs of phases 9-11; returns their records."""
     import torch
-    from sgnerf_tpu_torch.ops import fused_agg, fused_knn
+    from sgnerf_tpu_torch.ops import _cuda, fused_agg, fused_knn
 
     records = {}
     for key, entry in (("K4", "fused_block1_alpha_color"),
@@ -1062,18 +1137,29 @@ def phase12_k4_k6(paths):
         ref = fused_knn.fused_knn_select_tiled_plain(*args, **kwargs)
         torch.cuda.synchronize()
         assert torch.equal(ids, ref), int((ids != ref).sum())
+        assert torch.equal(fused_knn.fused_knn_select_tiled(*args, **kwargs),
+                           ids)
         ms = cuda_ms(lambda: fused_knn.fused_knn_select_tiled(*args,
                                                               **kwargs))
+        dev_ms = _cuda.device_ms(
+            lambda: fused_knn.fused_knn_select_tiled(*args, **kwargs))
         plain_ms = cuda_ms(lambda: fused_knn.fused_knn_select_tiled_plain(
             *args, **kwargs))
     rows, inv, delta, ok = args[:4]
-    M, C, K = inv.shape[0], kwargs["C"], kwargs["K"]
+    M, C, K, U = inv.shape[0], kwargs["C"], kwargs["K"], kwargs["U"]
     bound_ms, bound_by = bound(nbytes(rows, inv, delta, ok) + M * K * 4,
                                8.0 * M * C, F32_FLOPS)
+    res = fused_knn.fused_knn_resources(C, U, rows.device)
+    sms = torch.cuda.get_device_properties(rows.device).multi_processor_count
     log(f"phase 12: K6 fused_knn_select_tiled M={M} T={kwargs['T']} "
-        f"U={kwargs['U']} ({rows.shape[0]} distinct-row slots, "
-        f"{nbytes(rows) / 1e6:.1f} MB): ids equal; {ms:.3f} ms vs plain "
-        f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        f"U={U} ({rows.shape[0]} distinct-row slots, "
+        f"{nbytes(rows) / 1e6:.1f} MB): ids equal, a rerun the same bits; "
+        f"{ms:.4f} ms (one call) vs plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}) = {bound_ms / ms:.1%} of it; device "
+        f"time back to back {dev_ms:.4f} ms ({bound_ms / dev_ms:.1%}); a "
+        f"persistent grid of at most {sms * res['K6']['blocks_per_sm']} "
+        f"blocks ({sms} SMs)")
+    knn_resources_and_sass(res, sass=False)
     records["K6"] = {
         "name": "fused_knn_select_tiled", "route": "cuda",
         "source": "sgnerf_tpu_torch/csrc/fused_knn.cu",
@@ -1482,15 +1568,10 @@ def phase7_k3_parts(feat, d, w, block1, alpha, g, kw):
             + "; ".join(f"{k} {v['registers']}, {v['smem_bytes']}, "
                         f"{v['blocks_per_sm']}" for k, v in res.items()))
     lib = _cuda.build("fused_agg_bwd")
-    dump = shutil.which("cuobjdump") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    if os.path.exists(dump):
-        sass = subprocess.run([dump, "-sass", lib], capture_output=True,
-                              text=True).stdout
-        for part in sass.split("Function : ")[1:]:
-            name = part.split("\n", 1)[0]
+    if _cuda.cuobjdump() is not None:
+        for name, counts in _cuda.sass_counts(lib,
+                                              ("HGMMA", "HMMA")).items():
             if "k3b_dgrad_kernel" in name:
-                counts = {op: part.count(op) for op in ("HGMMA", "HMMA")}
                 log(f"phase 7: K3b SASS ({name[:60]}): {counts}")
                 assert counts["HGMMA"] > 0 and counts["HMMA"] == 0, counts
     else:

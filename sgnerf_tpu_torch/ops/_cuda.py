@@ -15,6 +15,7 @@ import hashlib
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import time
 
@@ -34,6 +35,8 @@ _SIGNATURES = {
         # rows, inv, delta, slot_ok, r2, nt, T, U, C, K, out, stream
         "fused_knn_select_tiled": [_P, _P, _P, _P, _F, _I, _I, _I, _I, _I,
                                    _P, _P],
+        # C, U, *regs[2], *smem_bytes[2], *blocks_per_sm[2] (K1, K6)
+        "fused_knn_occupancy": [_I, _I, _P, _P, _P],
     },
     "fused_agg": {
         # feat, d, w, W, b, n_layers, wa, ba, M, K, F, nf, Dd, df, C, bf16,
@@ -187,6 +190,61 @@ def build_all() -> float:
     for name in _SIGNATURES:
         load(name)
     return time.perf_counter() - t0
+
+
+def cuobjdump() -> str:
+    """The toolkit's cuobjdump (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin),
+    or None."""
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    path = os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda",
+                        "bin", "cuobjdump")
+    return path if os.path.exists(path) else None
+
+
+def sass_counts(lib: str, ops) -> dict:
+    """{kernel (mangled name): {op: instructions}} of a built library's
+    SASS (`cuobjdump -sass`): the static count of each opcode in `ops`
+    (e.g. "SHFL" counts SHFL.BFLY and SHFL.IDX). Needs the toolkit."""
+    dump = cuobjdump()
+    if dump is None:
+        raise RuntimeError("cuobjdump not found: cannot read the SASS")
+    sass = subprocess.run([dump, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    out, fn = {}, None
+    for line in sass.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            fn = head.group(1)
+            out[fn] = dict.fromkeys(ops, 0)
+        elif fn is not None and "/*" in line:
+            for op in ops:
+                if re.search(rf"\b{op}(\.|\s)", line):
+                    out[fn][op] += 1
+    return out
+
+
+def device_ms(fn, reps: int = 50, rounds: int = 5) -> float:
+    """Median over `rounds` of the device milliseconds a call of fn() takes
+    when `reps` calls run back to back behind a spin kernel (so the host's
+    launch overhead stays off the clock), by CUDA events. Longer than
+    reps x a call's device time the spin must last; ~30 ms covers 50 calls
+    of the port's sub-millisecond kernels."""
+    import torch
+    fn()
+    times = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)      # ~30 ms: the reps queue behind it
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return statistics.median(times)
 
 
 def check(lib: ctypes.CDLL, err: int, what: str):

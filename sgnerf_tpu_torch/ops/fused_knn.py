@@ -11,6 +11,14 @@ tensors on the CPU; for CUDA tensors they launch the kernels or raise.
 Semantics (the reference's exact cache path): smallest d2 first, ties by
 candidate index, invalid candidates and exhausted rounds -> -1. Ids are
 integers: there is no gradient.
+
+The kernels' select: 8 lanes a shading point, lane g on the candidates
+g*N .. g*N+N-1 (N = ceil(C/8)), each lane's keys sorted in registers, then
+K rounds that take the smallest head of the 8 lanes (ties to the lowest
+lane) and pop it; `tests/test_torch_knn_select_model.py` states it step for
+step. K6 runs on a persistent grid that the C entry works out from the
+card's occupancy: one contiguous range of points a block, each tile the
+range touches staged in shared memory once.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ import torch
 from . import _cuda
 
 _BIG = torch.finfo(torch.float32).max
+_INVALID_VALUE = 1       # cudaErrorInvalidValue
 
 
 def _check(rows, delta, ok, C, K, M=None):
@@ -91,6 +100,19 @@ def fused_knn_select(rows: torch.Tensor, delta: torch.Tensor,
 
 
 fused_knn_select.launches = 0
+
+
+def fused_knn_resources(C: int, U: int, device=None):
+    """Registers a thread, shared memory a block (bytes) and resident blocks
+    an SM on the card of K1 and of K6 (U rows a tile) at C candidates."""
+    lib = _cuda.load("fused_knn")
+    vals = [(ctypes.c_int * 2)() for _ in range(3)]
+    with torch.cuda.device(device):
+        err = lib.fused_knn_occupancy(C, U, *vals)
+    _cuda.check(lib, err, "fused_knn_occupancy")
+    keys = ("registers", "smem_bytes", "blocks_per_sm")
+    return {k: dict(zip(keys, (v[i] for v in vals)))
+            for i, k in enumerate(("K1", "K6"))}
 
 
 def tile_unique(slot: torch.Tensor, ok: torch.Tensor, T: int, U: int):
@@ -170,6 +192,10 @@ def fused_knn_select_tiled(rows: torch.Tensor, inv: torch.Tensor,
             _cuda.ptr(rows), _cuda.ptr(inv), _cuda.ptr(delta), _cuda.ptr(ok),
             ctypes.c_float(float(radius2)), M // T, T, U, C, K,
             _cuda.ptr(out), _cuda.stream_of(rows))
+    if err == _INVALID_VALUE:               # refused before any launch
+        raise ValueError(f"fused_knn_select_tiled: U={U} rows of C={C} "
+                         f"candidates (U * 10 C bytes) exceed a block's "
+                         f"shared memory, or M={M} is past int32")
     fused_knn_select_tiled.launches += 1
     _cuda.check(lib, err, "fused_knn_select_tiled")
     return out

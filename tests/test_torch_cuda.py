@@ -25,7 +25,8 @@ from sgnerf_tpu_torch.ops.fused_agg import (
 from sgnerf_tpu_torch.ops.pallas_gather import (gather_rows_pallas,
                                                 gather_rows_staged,
                                                 sorted_segment_sum)
-from sgnerf_tpu_torch.ops.fused_knn import (fused_knn_select,
+from sgnerf_tpu_torch.ops.fused_knn import (fused_knn_resources,
+                                            fused_knn_select,
                                             fused_knn_select_plain,
                                             fused_knn_select_tiled,
                                             fused_knn_select_tiled_plain,
@@ -46,31 +47,63 @@ def dev():
     return torch.device("cuda")
 
 
-def _knn_inputs(dev, M=1000, C=64):
-    rng = np.random.default_rng(0)
-    off = rng.normal(scale=0.02, size=(M, C, 3)).astype(np.float32)
+def _knn_inputs(dev, M=1000, C=64, lattice=False):
+    """Planar bf16 rows with duplicated offsets, padding ids, a row with no
+    valid id and slots that are not ok. lattice: offsets and deltas on a
+    grid of 2^-6, so many candidates share a d2 (within a row and across
+    the kernel's lanes)."""
+    rng = np.random.default_rng(M + C)
+    if lattice:
+        off = rng.integers(-3, 4, size=(M, C, 3)).astype(np.float32) / 64
+        dlt = rng.integers(-2, 3, size=(M, 3)).astype(np.float32) / 64
+    else:
+        off = rng.normal(scale=0.02, size=(M, C, 3)).astype(np.float32)
+        dlt = rng.normal(scale=0.02, size=(M, 3)).astype(np.float32)
     off[:, 1::7] = off[:, 0:1]
     pid = rng.integers(0, 1 << 30, size=(M, C)).astype(np.int32)
     pid[:, 2::5] = -1
+    if M > 2:
+        pid[M // 2] = -1
     xi = torch.from_numpy(off).to(torch.bfloat16).view(torch.int16)
     pi = torch.from_numpy(pid).view(torch.int16).reshape(M, C, 2)
     rows = torch.cat([xi.movedim(-1, -2).reshape(M, -1),
                       pi.movedim(-1, -2).reshape(M, -1)], dim=-1)
-    delta = torch.from_numpy(rng.normal(scale=0.02, size=(M, 3)).astype(
-        np.float32))
     ok = torch.from_numpy(rng.random(M) < 0.9)
-    return rows.to(dev), delta.to(dev), ok.to(dev)
+    return rows.to(dev), torch.from_numpy(dlt).to(dev), ok.to(dev)
 
 
-@pytest.mark.parametrize("r2,K,C", [(9e-4, 8, 64), (0.0, 8, 64),
-                                    (4e-4, 4, 24)])
-def test_k1_kernel_equals_plain(dev, r2, K, C):
-    rows, delta, ok = _knn_inputs(dev, C=C)
-    n0 = fused_knn_select.launches
-    got = fused_knn_select(rows, delta, ok, r2, C=C, K=K)
-    assert fused_knn_select.launches == n0 + 1
-    ref = fused_knn_select_plain(rows, delta, ok, r2, C=C, K=K)
-    assert torch.equal(got, ref)
+# every K bucket edge of the select (its lists hold N = ceil(C/8) keys a
+# lane whatever K is) at C of 1, 24, 63 and 64 (64: the 16-byte path)
+KNN_KC = [(K, C) for C in (1, 24, 63, 64) for K in (1, 7, 8, 9, 16, 33, 64)
+          if K <= C]
+
+
+@pytest.mark.parametrize("K,C", KNN_KC)
+@pytest.mark.parametrize("lattice", [False, True])
+def test_k1_kernel_equals_plain(dev, lattice, K, C):
+    """Ids bit-equal to the plain K1 at M of 1, 7 and 1001 (one point, part
+    of a warp, an odd M past a block of 32 points), with r2 on and off, on
+    rows with ties; an unaligned row table (the scalar path at C = 64);
+    a rerun gives the same bits."""
+    for M in (1, 7, 1001):
+        rows, delta, ok = _knn_inputs(dev, M=M, C=C, lattice=lattice)
+        for r2 in (9e-4, 0.0):
+            n0 = fused_knn_select.launches
+            got = fused_knn_select(rows, delta, ok, r2, C=C, K=K)
+            assert fused_knn_select.launches == n0 + 1
+            ref = fused_knn_select_plain(rows, delta, ok, r2, C=C, K=K)
+            assert torch.equal(got, ref), (M, r2, int((got != ref).sum()))
+            assert M <= 2 or (got[M // 2] == -1).all()
+            assert torch.equal(got, fused_knn_select(rows, delta, ok, r2,
+                                                     C=C, K=K))
+    # a row table 2 bytes past a 16-byte boundary
+    buf = torch.empty(rows.numel() + 1, dtype=torch.int16, device=dev)
+    shifted = buf[1:].view(rows.shape)
+    shifted.copy_(rows)
+    assert shifted.data_ptr() % 16 != 0
+    assert torch.equal(fused_knn_select(shifted, delta, ok, 0.0, C=C, K=K),
+                       fused_knn_select_plain(rows, delta, ok, 0.0, C=C,
+                                              K=K))
 
 
 def _agg_inputs(dev, M=500, K=8, F=32, Dd=6, C=256, n_layers=2):
@@ -395,10 +428,18 @@ def _tiled_inputs(dev, nt, T, U, n_slots, C=64):
     return rows, inv, deltap, okp
 
 
-@pytest.mark.parametrize("U,n_slots,overflow", [(160, 120, False),
-                                                (40, 120, True)])
-def test_k6_kernel_equals_plain_and_k1(dev, U, n_slots, overflow):
-    nt, T = 5, 1536
+@pytest.mark.parametrize("U,n_slots,T,overflow", [
+    (160, 120, 1536, False),     # the eval chunk's T and cap
+    (40, 120, 1536, True),       # tiles past the cap
+    (1, 30, 100, True),          # one row a tile; T not a block's multiple
+    (160, 120, 100, False),
+    (363, 300, 700, False),      # the largest U the select takes at C = 64
+])
+def test_k6_kernel_equals_plain_and_k1(dev, U, n_slots, T, overflow):
+    """Ids bit-equal to the plain K6 and to K1 on each point's own row
+    inside its tile's cap (-1 past it), a rerun the same bits; then with
+    tile 0 wholly overflowed (inv == U on every point): -1 there."""
+    nt = 5
     rows, inv, delta, ok = _tiled_inputs(dev, nt, T, U, n_slots)
     assert bool(((inv == U) & ok).any()) == overflow
     n0 = fused_knn_select_tiled.launches
@@ -416,6 +457,43 @@ def test_k6_kernel_equals_plain_and_k1(dev, U, n_slots, overflow):
     assert (got[~kept] == -1).all()
     assert torch.equal(got, fused_knn_select_tiled(rows, inv, delta, ok, 9e-4,
                                                    C=64, K=8, T=T, U=U))
+    inv[:T] = U
+    got = fused_knn_select_tiled(rows, inv, delta, ok, 9e-4, C=64, K=8, T=T,
+                                 U=U)
+    assert (got[:T] == -1).all()
+    assert torch.equal(got, fused_knn_select_tiled_plain(
+        rows, inv, delta, ok, 9e-4, C=64, K=8, T=T, U=U))
+
+
+@pytest.mark.parametrize("K,C", [(1, 1), (9, 24), (33, 63), (64, 64)])
+def test_k6_kernel_takes_every_k_and_c(dev, K, C):
+    """K6's scalar paths (C below 64) and the K edges, at the largest U the
+    select takes at that C (U rows of 10 C bytes within 232,448 bytes of
+    shared memory, as before the redesign); one row more is refused with
+    a ValueError before any launch."""
+    U, T, nt = 232448 // (10 * C), 300, 3
+    rows, inv, delta, ok = _tiled_inputs(dev, nt, T, U, 2 * U, C=C)
+    got = fused_knn_select_tiled(rows, inv, delta, ok, 0.0, C=C, K=K, T=T,
+                                 U=U)
+    assert torch.equal(got, fused_knn_select_tiled_plain(
+        rows, inv, delta, ok, 0.0, C=C, K=K, T=T, U=U))
+    n0 = fused_knn_select_tiled.launches
+    with pytest.raises(ValueError):
+        fused_knn_select_tiled(torch.zeros(nt * (U + 1), 5 * C,
+                                           dtype=torch.int16, device=dev),
+                               inv, delta, ok, 0.0, C=C, K=K, T=T, U=U + 1)
+    assert fused_knn_select_tiled.launches == n0
+
+
+def test_knn_resources(dev):
+    """K1's and K6's registers, shared memory and blocks an SM at the eval
+    chunk's C = 64 and U = 160: K6 holds its tile, K1 has no shared
+    memory, neither spills past what fits a block."""
+    res = fused_knn_resources(64, 160, dev)
+    assert res["K1"]["smem_bytes"] == 0
+    assert res["K6"]["smem_bytes"] >= 160 * 640
+    assert res["K1"]["blocks_per_sm"] >= 1 and res["K6"]["blocks_per_sm"] >= 1
+    assert 0 < res["K1"]["registers"] <= 255
 
 
 def test_k4_autograd_backward_matches_plain(dev):

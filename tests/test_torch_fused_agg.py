@@ -22,6 +22,7 @@ from sgnerf_tpu.ops.fused_agg import fused_block1_alpha as jax_fused
 from sgnerf_tpu_torch.models import aggregator as tagg
 from sgnerf_tpu_torch.models.params import params_from_jax, params_to_jax
 from sgnerf_tpu_torch.ops.fused_agg import fused_block1_alpha
+from torch_threads import one_cpu_thread  # noqa: F401
 
 TOL = {False: (3e-5, 3e-6), True: (1e-2, 1e-3)}
 

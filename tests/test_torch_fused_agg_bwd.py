@@ -28,6 +28,7 @@ from sgnerf_tpu_torch.ops.fused_agg import (fused_block1_alpha,
                                             k3b_data_grads_plain,
                                             k3c_weight_grads_plain,
                                             params_grad_size)
+from torch_threads import one_cpu_thread  # noqa: F401
 
 K, NF, DF = 8, 3, 5
 
@@ -81,6 +82,12 @@ def _assert_close(got, ref, bf16):
 def _jax_args(feat, d, w, params):
     return (jnp.asarray(feat), jnp.asarray(d), jnp.asarray(w),
             params["block1"], params["alpha_branch"])
+
+
+def test_plain_versions_run_on_one_cpu_thread():
+    """The module's autouse fixture is in force where the plain versions
+    run (tests/torch_threads.py)."""
+    assert torch.get_num_threads() == 1
 
 
 @pytest.mark.parametrize("bf16", [False, True])

@@ -29,6 +29,7 @@ from sgnerf_tpu_torch.models import aggregator as tagg
 from sgnerf_tpu_torch.models.params import params_from_jax
 from sgnerf_tpu_torch.ops.fused_agg import (fused_block1_alpha_color,
                                             fused_block1_alpha_color_bwd)
+from torch_threads import one_cpu_thread  # noqa: F401
 
 K, NF, DF, VF = 8, 3, 5, 4
 
@@ -59,6 +60,12 @@ def _torch_args(arrays, params):
     tp = params_from_jax(params)
     return tuple(torch.from_numpy(a) for a in arrays) + (
         tp["block1"], tp["alpha_branch"], tp["color_branch"])
+
+
+def test_plain_versions_run_on_one_cpu_thread():
+    """The module's autouse fixture is in force where the plain versions
+    run (tests/torch_threads.py)."""
+    assert torch.get_num_threads() == 1
 
 
 @pytest.mark.parametrize("bf16", [False, True])

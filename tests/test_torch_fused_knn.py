@@ -7,6 +7,7 @@ import torch
 
 from sgnerf_tpu.ops.fused_knn import fused_knn_select as jax_select
 from sgnerf_tpu_torch.ops.fused_knn import fused_knn_select
+from torch_threads import one_cpu_thread  # noqa: F401
 
 
 def _rows(seed, M=300, C=64):

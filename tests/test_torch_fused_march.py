@@ -20,6 +20,7 @@ from sgnerf_tpu.ops.fused_agg import (
     fused_block1_alpha_color_march as jax_march)
 from sgnerf_tpu_torch.models.params import params_from_jax
 from sgnerf_tpu_torch.ops.fused_agg import fused_block1_alpha_color_march
+from torch_threads import one_cpu_thread  # noqa: F401
 
 K, NF, DF, VF = 8, 3, 5, 4
 

@@ -10,6 +10,7 @@ import torch
 
 from sgnerf_tpu.models import point_cloud as jpc
 from sgnerf_tpu_torch.models import point_cloud as tpc
+from torch_threads import one_cpu_thread  # noqa: F401
 
 FIELDS = ("occ_mask", "vox_slot", "bucket_pnts", "bucket_cnt", "bucket_xyz",
           "dil_slot", "nbr_packed", "coarse_occ")

@@ -25,6 +25,7 @@ import torch
 
 from sgnerf_tpu.models import point_cloud as jpc
 from sgnerf_tpu_torch.models import point_cloud as tpc
+from torch_threads import one_cpu_thread  # noqa: F401
 
 GROWN = ("xyz", "embedding", "conf", "color", "dir")
 UNGROWN = ("feats", "label", "label_prob", "sem_embedding", "rot_idx")

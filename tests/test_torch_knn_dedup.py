@@ -16,6 +16,7 @@ from sgnerf_tpu.ops.fused_knn import tile_unique as jax_tile_unique
 from sgnerf_tpu_torch.ops.fused_knn import (fused_knn_select,
                                             fused_knn_select_tiled,
                                             tile_unique)
+from torch_threads import one_cpu_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("M,T,U,n_slots,overflow", [

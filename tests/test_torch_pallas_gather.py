@@ -29,6 +29,7 @@ from sgnerf_tpu_torch.ops.pallas_gather import (gather_rows_pallas,
                                                 gather_rows_plain,
                                                 gather_rows_staged,
                                                 sorted_segment_sum)
+from torch_threads import one_cpu_thread  # noqa: F401
 
 DTYPES = {"int16": (np.int16, jnp.int16, torch.int16),
           "float32": (np.float32, jnp.float32, torch.float32)}

@@ -16,6 +16,7 @@ from sgnerf_tpu.ops.query import query_neighbors as jquery
 from sgnerf_tpu.ops.raygen import near_far_linear_ray_generation as jraygen
 from sgnerf_tpu_torch.models import point_cloud as tpc
 from sgnerf_tpu_torch.ops.query import query_neighbors as tquery
+from torch_threads import one_cpu_thread  # noqa: F401
 
 
 def _scene(cache_dtype, coarse, nbr_cache=64):

@@ -23,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_cpu_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 W, H = 48, 36
 

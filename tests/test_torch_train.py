@@ -31,6 +31,7 @@ from sgnerf_tpu_torch.models import point_cloud as tpc
 from sgnerf_tpu_torch.models import renderer as tren
 from sgnerf_tpu_torch.models import train as ttrain
 from sgnerf_tpu_torch.models.params import params_from_jax
+from torch_threads import one_cpu_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
