@@ -106,7 +106,28 @@ fine-tune train step (the flags of scene0113_00_default.sh). Phases:
      loss; one probe frame under
      torch.profiler (device time by kernel). Then train_ft.main
      with the canonical growing flags (--prob_freq 5 ...) for 10 steps,
-     through the probes of steps 5 and 10.
+     through the probes of steps 5 and 10;
+ 16. the semantic branch at full width (the canonical SG-NeRF config,
+     dev_scripts/myexp_scannet_colmap/scene0241_02_semanticGuidance.sh):
+     a ScanNet export with depth and ScanNet-40 label pngs from a z-buffer
+     of the room scan and seeded colours as BPNet's input; the BPNet
+     refresh over the 4.2M points (ResNet-34 at 640x480 x 3 views,
+     MinkUNet18A at 5 cm) in bf16, first and cached, then f32 on the same
+     voxels: wall times split into voxelize + links and forward +
+     devoxelize, voxels at each stride, peak memory; bf16 3D labels agree
+     with f32 on > 95% of voxels; the card's f32 forward against the
+     port's CPU forward at 160x120 and 200k points (BPNET_CPU_TOL). Then
+     train_ft.main with the semantic train flags for 10 steps, a refresh
+     every step, a save at step 5 and 10: losses, refreshes applied and in
+     the background, step times with a refresh in flight and, on 5 more
+     steps of the trained model, without one (one of them under
+     torch.profiler), the attribute-table
+     rebuild at 42 and 138 columns, and a background refresh against a
+     synchronous one on the same snapshot (BPNET_BG_TOL). Then run/test_ft
+     on its checkpoint with the eval script's flags (and the two semantic
+     flags): K1 once a chunk, K2 never, the frame once more under
+     torch.profiler, and the frame equal to the knn_mode="exact" frame
+     within 1e-6.
 
 Any failure raises and the script exits non-zero before its last line.
 The last line is {"ok": true, "device": {...}}; the line before it holds
@@ -121,6 +142,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -530,9 +552,16 @@ def main():
     from sgnerf_tpu_torch.ops import query as query_mod
     from sgnerf_tpu_torch.runtime.scene_model import SceneModel
 
-    for d in ("smoke", "smoke_ft", "smoke_scans",
-              "smoke_grow"):                          # this script's outputs
+    for d in ("smoke", "smoke_ft", "smoke_scans", "smoke_grow", "smoke_sem",
+              "smoke_sem_scans"):                     # this script's outputs
         shutil.rmtree(os.path.join(REPO, "build", d), ignore_errors=True)
+
+    t_last = [time.perf_counter()]
+
+    def stamp(what):
+        now = time.perf_counter()
+        log(f"[time] {what}: {now - t_last[0]:.1f} s")
+        t_last[0] = now
 
     # ---- 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -633,12 +662,16 @@ def main():
     del model, a, b, kw, captured, k1_args
     torch.cuda.empty_cache()
 
+    stamp("phases 1-5")
+
     # ---- 6-7. the train step, then K3 vs its plain version
     records["K3"] = phase6_7_train(item)
     torch.cuda.empty_cache()
 
     # ---- 8. the training CLI
     phase8_train_ft()
+
+    stamp("phases 6-8")
 
     # ---- 9-11. the opt-in render paths on the phase-3 scene, reloaded
     model = SceneModel(opt)
@@ -651,6 +684,8 @@ def main():
     del paths
     torch.cuda.empty_cache()
 
+    stamp("phases 9-12")
+
     # ---- 13. the train step with the colour head in kernel K4
     phase13_train_fused_color(item)
     torch.cuda.empty_cache()
@@ -661,6 +696,12 @@ def main():
 
     # ---- 15. growing at full width
     phase15_growing()
+    torch.cuda.empty_cache()
+    stamp("phases 13-15")
+
+    # ---- 16. the semantic branch at full width
+    phase16_semantic()
+    stamp("phase 16")
 
     log(json.dumps({"kernels": [records[k] for k in sorted(records)]}))
     log(json.dumps({"ok": True, "device": {
@@ -1928,6 +1969,476 @@ def phase15_growing():
     assert "training from step 0 to 10" in text
     assert len(probes) == 2, probes
     assert os.path.exists(os.path.join(expr, "10_net_ray_marching.npz"))
+
+
+
+# ------------------------------------------------------------- phase 16
+
+# dev_scripts/myexp_scannet_colmap/scene0241_02_semanticGuidance.sh differs
+# from scene0113_00_default.sh (TRAIN_FLAGS) in these flags, besides the
+# scan and the step, print, save and test counts
+SEMANTIC_TRAIN = {
+    "--semantic_guidance": ["1"], "--predict_semantic": ["1"],
+    "--shading_feature_mlp_layer2_bpnet": ["1"], "--bpnet_dtype": ["bfloat16"],
+    "--prune_thresh": ["-1"], "--prune_iter": ["-1"],
+    "--prob_freq": ["1000000"], "--prob_num_step": ["1000000"],
+    "--test_freq": ["500000"]}
+# scene0241_02_semanticGuidance_test.sh differs from test_default.sh
+# (TEST_DEFAULT_FLAGS) in these, besides the scan and --resume_iter best;
+# the two semantic flags are not in the script, but the JAX package cannot
+# render the train script's checkpoint without them (block2_bpnet's input
+# is 256 + 96 wide, and the embedding is gathered only under guidance)
+SEMANTIC_EVAL = {
+    "--compute_dtype": ["bfloat16"], "--shading_feature_mlp_layer2_bpnet": ["1"],
+    "--semantic_guidance": ["1"], "--predict_semantic": ["1"]}
+# ScanNet-40 ids of the room scan's surfaces: walls, floor, ceiling (not in
+# the 20 classes: remapped to 255), the 12 boxes as furniture classes of
+# SCANNET20_REMAP_IDS (cabinet .. curtain)
+WALL, FLOOR, CEILING = 1, 2, 22
+FURNITURE = (3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 14, 16)
+SEM_TRAIN_STEPS = 10
+BPNET_CPU_POINTS = 200_000        # the CPU forward's share of the room scan
+# the card's BPNet forward vs the port's own CPU forward (f32 both, TF32
+# off), the same products summed in other orders: features within 1e-4 of
+# their largest magnitude (3.6e-6 measured); probabilities within 1e-2
+# absolute: the seeded weights (He init, BN at identity) drive the logits
+# to ~1e3, where a 1e-6 relative reordering moves a logit by ~1e-3 and a
+# near-tied probability by as much (1.03e-3 measured; 1e-3 was set before
+# the first reading); labels may flip where two classes tie within that
+BPNET_CPU_TOL = {"probs": 1e-2, "feat": 1e-4, "labels": 0.999}
+# a background refresh vs a synchronous one on the same snapshot (bf16,
+# the same kernels on another stream)
+BPNET_BG_TOL = {"probs": 1e-2, "labels": 0.999}
+
+
+def with_flags(base, new):
+    """base flag list with the values of `new` ({flag: [values]}) put in
+    place of its own, the flags it lacks appended."""
+    out, i, seen = [], 0, set()
+    while i < len(base):
+        j = i + 1
+        while j < len(base) and not base[j].startswith("--"):
+            j += 1
+        flag = base[i]
+        out += [flag] + (list(new[flag]) if flag in new else base[i + 1:j])
+        seen.add(flag)
+        i = j
+    for flag, vals in new.items():
+        if flag not in seen:
+            out += [flag] + list(vals)
+    return out
+
+
+def room_surface_ids(xyz):
+    """ScanNet-40 id of each room-scan point's surface, from room_scan's
+    layout: the first half on the 5x5x3 m shell (the face its coordinate
+    sits on), then the 12 boxes in order."""
+    n = len(xyz)
+    n_room = n // 2
+    ids = np.empty(n, np.int32)
+    shell = np.abs(xyz[:n_room]) / np.array([2.5, 2.5, 1.5], np.float32)
+    axis = shell.argmax(1)
+    ids[:n_room] = np.where(axis < 2, WALL,
+                            np.where(xyz[:n_room, 2] < 0, FLOOR, CEILING))
+    n_f = n - n_room
+    per = np.full(12, n_f // 12)
+    per[:n_f - per.sum()] += 1
+    ids[n_room:] = np.repeat(np.asarray(FURNITURE, np.int32), per)
+    return ids
+
+
+def surface_colours(ids, seed=5):
+    """Seeded 0-255 RGB per point: one base colour per surface id and
+    per-point noise (BPNet's input, the cloud's `feats`)."""
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(30, 225, (256, 3))
+    noise = rng.normal(scale=12.0, size=(len(ids), 3))
+    return np.clip(base[ids] + noise, 0, 255).astype(np.float32)
+
+
+def write_semantic_export(root, xyz, ids, dev, n_views=6):
+    """write_scannet_export's views, with each view's depth (mm, uint16)
+    and ScanNet-40 label png from a z-buffer of the room scan on `dev`
+    (the nearest point a pixel)."""
+    import torch
+    from PIL import Image
+    write_scannet_export(root, n_views)
+    exported = os.path.join(root, "scene_smoke", "exported")
+    for sub in ("depth", "label"):
+        os.makedirs(os.path.join(exported, sub), exist_ok=True)
+    pts = torch.as_tensor(xyz, device=dev)
+    tids = torch.as_tensor(ids, device=dev)
+    n = pts.shape[0]
+    hit_share = []
+    for i in range(n_views):
+        c2w = torch.as_tensor(np.loadtxt(os.path.join(
+            exported, f"pose/{i}.txt")), dtype=torch.float32, device=dev)
+        cam = (pts - c2w[:3, 3]) @ c2w[:3, :3]
+        z = cam[:, 2]
+        px = torch.round(cam[:, 0] * FOCAL / z + W_IMG / 2).long()
+        py = torch.round(cam[:, 1] * FOCAL / z + H_IMG / 2).long()
+        ok = (z > 0.1) & (px >= 0) & (px < W_IMG) & (py >= 0) & (py < H_IMG)
+        # the nearest point a pixel: min over (depth in 0.1 mm, point id)
+        key = (z * 1e4).long() * n + torch.arange(n, device=dev)
+        best = torch.full((H_IMG * W_IMG,), torch.iinfo(torch.long).max,
+                          device=dev)
+        best.scatter_reduce_(0, (py * W_IMG + px)[ok], key[ok], "amin")
+        hit = best < torch.iinfo(torch.long).max
+        idx = torch.where(hit, best % n, torch.zeros_like(best))
+        depth = torch.where(hit, z[idx] * 1000.0, torch.zeros_like(z[idx]))
+        label = torch.where(hit, tids[idx], torch.zeros_like(tids[idx]))
+        Image.fromarray(depth.reshape(H_IMG, W_IMG).round().clamp(
+            0, 65535).cpu().numpy().astype(np.uint16)).save(
+                os.path.join(exported, f"depth/{i}.png"))
+        Image.fromarray(label.reshape(H_IMG, W_IMG).cpu().numpy().astype(
+            np.uint8)).save(os.path.join(exported, f"label/{i}.png"))
+        hit_share.append(float(hit.float().mean()))
+    return hit_share
+
+
+def semantic_checkpoint(expr, opt, xyz, feats):
+    """The room scan with BPNet's input colours and the semantic config's
+    seeded weights (block2_bpnet on 256 + 96 inputs) as a native
+    checkpoint in `expr`."""
+    from sgnerf_tpu_torch.models.aggregator import init_aggregator_params
+    from sgnerf_tpu_torch.models.checkpoint_io import save_native
+    from sgnerf_tpu_torch.models.params import params_to_jax
+    from sgnerf_tpu_torch.options import configs_from_opt
+    cfg, _, _ = configs_from_opt(opt)
+    assert cfg.agg.shading_feature_mlp_layer2_bpnet == 1
+    n = len(xyz)
+    rng = np.random.default_rng(0)
+    cloud = {
+        "xyz": xyz,
+        "embedding": (rng.normal(size=(n, 32)) * 0.1).astype(np.float32),
+        "conf": np.ones((n, 1), np.float32),
+        "dir": (xyz / np.linalg.norm(xyz, axis=-1, keepdims=True)).astype(
+            np.float32),
+        "color": feats / 255.0, "feats": feats,
+        "Rw2c": np.eye(3, dtype=np.float32),
+        "active": np.ones(n, bool), "n_active": np.asarray(n, np.int32)}
+    os.makedirs(expr, exist_ok=True)
+    params = params_to_jax(init_aggregator_params(0, cfg.agg))
+    assert params["block2_bpnet"][0]["w"].shape == (256 + 96, 256)
+    save_native(os.path.join(expr, "0_net_ray_marching.npz"),
+                {"params": params, "cloud": cloud},
+                {"iter": 0, "best_psnr": 0.0, "best_iter": 0})
+
+
+def gib(base=0):
+    """Peak GiB since the last reset: in all, and above `base` bytes (what
+    was allocated before the measured work)."""
+    import torch
+    peak = torch.cuda.max_memory_allocated()
+    return (f"{peak / 2 ** 30:.2f} GiB ({(peak - base) / 2 ** 30:.2f} GiB "
+            f"above the {base / 2 ** 30:.2f} GiB held before)")
+
+
+def voxel_agreement(a, b, inds_rec, n_vox):
+    """Share of voxels whose devoxelized labels agree (one point a voxel)."""
+    import torch
+    pos = torch.empty(n_vox, dtype=torch.long, device=a.device)
+    pos.scatter_(0, inds_rec, torch.arange(inds_rec.shape[0],
+                                           device=a.device))
+    return float((a[pos] == b[pos]).float().mean())
+
+
+def phase16_bpnet(xyz, feats, item, dev):
+    """Phase 16b: the BPNet refresh at full width (bf16, then f32 on the
+    same voxel structure), held to the port's CPU forward at a reduced
+    size and bf16 labels to f32 labels."""
+    import torch
+    from sgnerf_tpu_torch.models.bpnet.bpnet import (BPNet, BPNetConfig,
+                                                     map_tensors)
+    intr4 = np.eye(4)
+    intr4[:3, :3] = item["intrinsic"]
+    args = (item["train_id_paths"], item["image_path"], intr4)
+    cfg16 = BPNetConfig(img_wh=(W_IMG, H_IMG), compute_dtype="bfloat16")
+    net16 = BPNet(cfg16, seed=7, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    runs = {}
+    for name in ("first", "cached"):
+        t0 = time.perf_counter()
+        out = net16.train_bpnet(xyz, feats, *args, device_out=True)
+        torch.cuda.synchronize()
+        runs[name] = (time.perf_counter() - t0, dict(net16.timings), out)
+    cache = net16._vox_cache
+    vc = cache["grid"].coords.cpu().numpy()
+    counts = [len(np.unique(vc >> s, axis=0)) for s in range(5)]
+    for name, (wall, split, _) in runs.items():
+        log(f"phase 16: BPNet refresh bf16 ({name}) over {len(xyz)} points, "
+            f"ResNet-34 at {W_IMG}x{H_IMG} x {cfg16.view_num} views, "
+            f"MinkUNet18A at {cfg16.voxel_size * 100:.0f} cm: "
+            f"{wall:.3f} s wall (voxelize + links {split['host_s']:.3f} s, "
+            f"forward + devoxelize {split['forward_s']:.3f} s)")
+    log(f"phase 16: voxels at stride 1/2/4/8/16: {counts}; peak memory "
+        f"{gib(base)}")
+    l_first, l_cached = runs["first"][2][0], runs["cached"][2][0]
+    same = voxel_agreement(l_first, l_cached, cache["inds_rec"], counts[0])
+    log(f"phase 16: cached refresh vs first: labels equal on {same:.6f} of "
+        f"voxels, probs max |diff| "
+        f"{float((runs['first'][2][1] - runs['cached'][2][1]).abs().max()):.3e}")
+    assert same >= BPNET_BG_TOL["labels"], same
+
+    net32 = BPNet(dataclasses.replace(cfg16, compute_dtype="float32"),
+                  params=net16.params, device=dev)
+    net32._vox_cache = cache              # the same cloud: the same voxels
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out32 = net32.train_bpnet(xyz, feats, *args, device_out=True)
+    torch.cuda.synchronize()
+    log(f"phase 16: BPNet refresh f32 (cached voxels) "
+        f"{time.perf_counter() - t0:.3f} s wall (forward + devoxelize "
+        f"{net32.timings['forward_s']:.3f} s); peak memory {gib(base)}")
+    agree = voxel_agreement(l_cached, out32[0], cache["inds_rec"], counts[0])
+    log(f"phase 16: bf16 vs f32 3D labels agree on {agree:.4f} of "
+        f"{counts[0]} voxels (> 0.95 required, the JAX package's criterion)")
+    assert agree > 0.95, agree
+    for o in (runs["cached"][2], out32):
+        assert torch.isfinite(o[1]).all() and torch.isfinite(o[3]).all()
+        assert o[1].shape == (len(xyz), 20) and o[3].shape == (len(xyz), 96)
+    del runs, out32, net32
+
+    # the card's f32 forward vs the port's own CPU forward, reduced size
+    n_sub = min(BPNET_CPU_POINTS, len(xyz))
+    sub = np.random.default_rng(9).choice(len(xyz), n_sub, replace=False)
+    small = BPNetConfig(img_wh=(160, 120), compute_dtype="float32")
+    intr_s = intr4.copy()
+    intr_s[:2] /= W_IMG / 160
+    outs = []
+    for d in (dev, "cpu"):
+        net = BPNet(small, params=map_tensors(lambda t: t.to(d),
+                                              net16.params), device=d)
+        t0 = time.perf_counter()
+        o = net.train_bpnet(xyz[sub], feats[sub], args[0], args[1], intr_s,
+                            device_out=True)
+        outs.append(([t.cpu() if torch.is_tensor(t) else t for t in o],
+                     time.perf_counter() - t0, net._vox_cache["grid"].M))
+    (g, g_s, m), (c, c_s, _) = outs
+    perr = float((g[1] - c[1]).abs().max())
+    ferr = float((g[3] - c[3]).abs().max() / c[3].abs().max().clamp(min=1))
+    lab = float((g[0] == c[0]).float().mean())
+    log(f"phase 16: BPNet f32 at 160x120, {n_sub} points ({m} voxels): card "
+        f"{g_s:.2f} s, CPU {c_s:.2f} s; probs max |diff| {perr:.3e}, feature "
+        f"max |diff| / max {ferr:.3e}, labels equal {lab:.5f} (tolerance "
+        f"{BPNET_CPU_TOL})")
+    assert perr <= BPNET_CPU_TOL["probs"] and ferr <= BPNET_CPU_TOL["feat"]
+    assert lab >= BPNET_CPU_TOL["labels"], lab
+
+
+def phase16_train_ft(data, item):
+    """Phase 16c: train_ft.main with the scene0241_02_semanticGuidance.sh
+    flags (refresh every step), the step times with and without a refresh
+    in flight, the table rebuild, and a background refresh against a
+    synchronous one on the same snapshot."""
+    import torch
+    from sgnerf_tpu_torch.models.renderer import attribute_table
+    from sgnerf_tpu_torch.run import train_ft
+    from sgnerf_tpu_torch.runtime.scene_model import (SceneModel,
+                                                      batch_to_device)
+    from sgnerf_tpu_torch.runtime.semantic import SemanticDriver
+    build = os.path.join(REPO, "build")
+    flags = with_flags(TRAIN_FLAGS, SEMANTIC_TRAIN) + data + [
+        "--name", "sem", "--checkpoints_dir", os.path.join(build, "smoke_sem"),
+        "--maximum_step", str(SEM_TRAIN_STEPS), "--save_iter_freq",
+        str(SEM_TRAIN_STEPS // 2), "--test_num", "1", "--print_freq", "1"]
+    log(f"phase 16: train_ft flags changed from the script: --max_o 0 --P 0 "
+        f"(auto caps), --maximum_step {SEM_TRAIN_STEPS} --save_iter_freq "
+        f"{SEM_TRAIN_STEPS // 2} --print_freq 1 --test_num 1")
+    seen, steps = {}, []
+    refresh = SemanticDriver.maybe_refresh
+    optimize = SceneModel.optimize_multi
+
+    # the main stream only: a device-wide synchronize would wait for the
+    # refresh in flight on SemanticDriver's stream
+    def spy_refresh(self, model, it, steps=1):
+        seen["sem"], seen["model"] = self, model
+        torch.cuda.current_stream().synchronize()
+        t0 = time.perf_counter()
+        refresh(self, model, it, steps)
+        torch.cuda.current_stream().synchronize()
+        seen.setdefault("refresh_s", []).append(time.perf_counter() - t0)
+
+    def timed_step(self, batches):
+        drv = seen.get("sem")
+        torch.cuda.current_stream().synchronize()
+        t0 = time.perf_counter()
+        out = optimize(self, batches)
+        torch.cuda.current_stream().synchronize()
+        steps.append((time.perf_counter() - t0,
+                      bool(drv is not None and drv.in_flight), out))
+        return out
+    SemanticDriver.maybe_refresh = spy_refresh
+    SceneModel.optimize_multi = timed_step
+    tee = Tee(sys.stdout)
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(tee):
+            train_ft.main(flags)
+        torch.cuda.synchronize()
+    finally:
+        SemanticDriver.maybe_refresh = refresh
+        SceneModel.optimize_multi = optimize
+    wall = time.perf_counter() - t0
+    drv, model = seen["sem"], seen["model"]
+    losses = [float(ls["total"]) for _, _, out in steps for ls in out]
+    busy = [s for s, f, _ in steps if f]
+    idle = [s for s, f, _ in steps if not f]
+    med = (lambda v: f"{statistics.median(v) * 1e3:.1f} ms" if v
+           else "none")
+    log(f"phase 16: train_ft ran {SEM_TRAIN_STEPS} semantic steps in "
+        f"{wall:.1f} s (saves, export and test included); losses {losses}; "
+        f"refreshes applied {drv.n_applied}, background {drv.n_background}; "
+        f"first refresh {seen['refresh_s'][0]:.2f} s (synchronous); median "
+        f"step {med(busy)} with a refresh in flight ({len(busy)} steps), "
+        f"{med(idle)} without ({len(idle)}); launches {read_launches()}")
+    assert all(np.isfinite(losses)) and len(losses) == SEM_TRAIN_STEPS
+    assert drv.n_background >= 1 and drv.n_applied >= 2, (
+        drv.n_applied, drv.n_background)
+    assert read_launches()["fused_block1_alpha"] == 0    # block2_bpnet
+    expr = os.path.join(build, "smoke_sem", "sem")
+    for f in (f"{SEM_TRAIN_STEPS // 2}_net_ray_marching.npz",
+              f"{SEM_TRAIN_STEPS}_net_ray_marching.npz",
+              f"{SEM_TRAIN_STEPS}_net_ray_marching.pth",
+              f"{SEM_TRAIN_STEPS}_semanticEmbedding.pth"):
+        assert os.path.exists(os.path.join(expr, f)), f
+
+    # the step with no refresh in flight: the trained model on one batch
+    # of the train view, its pixel labels from BPNet's last 2D prediction
+    drv.flush(model)
+    it = dict(item, pixel_label=drv.pixel_labels_for(item))
+    batch = batch_to_device(it, model.device)
+    quiet = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(model.optimize(batch)["total"])
+        quiet.append(time.perf_counter() - t0)
+    log(f"phase 16: {len(quiet)} more steps with no refresh in flight: "
+        f"median {statistics.median(quiet) * 1e3:.1f} ms (last loss "
+        f"{loss:.6f})")
+    assert np.isfinite(loss)
+    profile_call("phase 16: profiled semantic step",
+                 lambda: model.optimize(batch))
+    cloud = model.cloud
+    ms = {c: cuda_ms(lambda c=c: attribute_table(cloud, "float32", c))
+          for c in (False, True)}
+    log(f"phase 16: attribute table rebuild (the train step's, "
+        f"{cloud.capacity} rows): {ms[False]:.3f} ms at 42 columns, "
+        f"{ms[True]:.3f} ms at 138 (with the 96-d embedding)")
+
+    # a background refresh vs a synchronous one on the same snapshot
+    snap = drv._snapshot(model, item)
+    sync = drv.bpnet.train_bpnet(*snap, device_out=True)
+    res = {}
+    drv._follow_caller()
+    th = threading.Thread(target=lambda: res.update(out=drv._run(snap)))
+    th.start()
+    th.join()
+    bg, event = res["out"]
+    torch.cuda.current_stream().wait_event(event)
+    cache = drv.bpnet._vox_cache
+    lab = voxel_agreement(bg[0], sync[0], cache["inds_rec"], cache["grid"].M)
+    perr = float((bg[1] - sync[1]).abs().max())
+    log(f"phase 16: background refresh (worker thread, side stream) vs "
+        f"synchronous (default stream) on one snapshot: labels equal on "
+        f"{lab:.6f} of {cache['grid'].M} voxels, probs max |diff| "
+        f"{perr:.3e} (tolerance {BPNET_BG_TOL})")
+    assert lab >= BPNET_BG_TOL["labels"] and perr <= BPNET_BG_TOL["probs"]
+    seen.clear()
+
+
+def phase16_eval(data, item):
+    """Phase 16d: run/test_ft on phase 16c's checkpoint with the eval
+    script's flags (bf16 cache, gathers and compute): K1 once a chunk, K2
+    never; then the frame against knn_mode="exact"."""
+    import torch
+    from sgnerf_tpu_torch.options import TestOptions
+    from sgnerf_tpu_torch.run import test_ft
+    from sgnerf_tpu_torch.runtime.scene_model import SceneModel
+    build = os.path.join(REPO, "build")
+    flags = with_flags(TEST_DEFAULT_FLAGS, SEMANTIC_EVAL) + data + [
+        "--name", "sem", "--checkpoints_dir", os.path.join(build, "smoke_sem"),
+        "--test_num_step", "50"]
+    tee = Tee(sys.stdout)
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        test_ft.main(flags)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    frames = [l_ for l_ in tee.buf.getvalue().splitlines()
+              if l_.startswith("num.")]
+    n_rays = len(item["raydir"])
+    chunks = -(-n_rays // 9216)
+    log(f"phase 16: test_ft (semantic eval flags) rendered {len(frames)} "
+        f"frame(s) in {time.perf_counter() - t0:.1f} s, launches {launches} "
+        f"(K1 once a chunk: {chunks} a frame)")
+    assert frames and launches["fused_knn_select"] == chunks * len(frames)
+    assert sum(launches.values()) == launches["fused_knn_select"], launches
+
+    opt = TestOptions().parse(flags)
+    model = SceneModel(opt)
+    model.load_checkpoint(model.resolve_resume())
+    assert model.cfg.knn_mode == "fused" and model.cfg.semantic_guidance
+    reset_launches()
+    t0 = time.perf_counter()
+    col = model.render_image(item)
+    frame_s = time.perf_counter() - t0
+    k1 = read_launches()["fused_knn_select"]
+    profile_call("phase 16: profiled semantic eval frame",
+                 lambda: model.render_image(item))
+    model.cfg = dataclasses.replace(model.cfg, knn_mode="exact")
+    exact = model.render_image(item)
+    diff = float(np.abs(col - exact).max())
+    log(f"phase 16: semantic eval frame of {n_rays} rays in "
+        f"{frame_s * 1e3:.1f} ms (K1 {k1} launches), vs knn_mode exact: max "
+        f"|diff| {diff:.3e} (tolerance 1e-6)")
+    assert col.shape == (n_rays, 3) and np.isfinite(col).all()
+    assert k1 == chunks and diff <= 1e-6, (k1, diff)
+
+
+def phase16_semantic(dev="cuda"):
+    """Phase 16: the semantic branch at full width."""
+    import torch
+    from sgnerf_tpu_torch.data import create_dataset
+    from sgnerf_tpu_torch.data.synthetic import room_scan
+    from sgnerf_tpu_torch.options import TestOptions, TrainOptions
+    build = os.path.join(REPO, "build")
+    scans = os.path.join(build, "smoke_sem_scans")
+    data = ["--data_root", scans + "/", "--scan", "scene_smoke",
+            "--dataset_name", "scannet_ft"]
+    t0 = time.perf_counter()
+    xyz = room_scan(np.random.default_rng(0), N_POINTS)
+    ids = room_surface_ids(xyz)
+    feats = surface_colours(ids)
+    hit = write_semantic_export(scans, xyz, ids, torch.device(dev))
+    export_s = time.perf_counter() - t0
+    opt = TrainOptions().parse(with_flags(TRAIN_FLAGS, SEMANTIC_TRAIN) + data
+                               + ["--name", "sem", "--checkpoints_dir",
+                                  os.path.join(build, "smoke_sem")])
+    opt.split = "train"
+    semantic_checkpoint(os.path.join(build, "smoke_sem", "sem"), opt, xyz,
+                        feats)
+    dataset = create_dataset(opt)
+    item = dataset.get_item(0)
+    log(f"phase 16: semantic export (depth and label pngs, pixels hit "
+        f"{[round(h, 3) for h in hit]}) in {export_s:.1f} s, checkpoint in "
+        f"{time.perf_counter() - t0 - export_s:.1f} s; pixel labels of view 0: "
+        f"{np.unique(item['pixel_label']).tolist()}")
+    phase16_bpnet(xyz, feats, item, dev)
+    torch.cuda.empty_cache()
+    phase16_train_ft(data, item)
+    torch.cuda.empty_cache()
+    # the frame test_ft renders first: the test split's view 0, whole
+    test_opt = TestOptions().parse(TEST_DEFAULT_FLAGS + data
+                                   + ["--test_num_step", "50"])
+    test_opt.random_sample = "no_crop"
+    phase16_eval(data, create_dataset(test_opt).get_item(0))
 
 
 if __name__ == "__main__":

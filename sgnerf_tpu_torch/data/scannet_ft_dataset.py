@@ -2,20 +2,23 @@
 `sgnerf_tpu/data/scannet_ft_dataset.py`; reference
 data/scannet_ft_dataset.py).
 
-  * the `exported/{color,pose,depth,intrinsic}` layout and the |c2w| < 30
-    pose filter;
+  * the `exported/{color,pose,depth,label,intrinsic}` layout and the
+    |c2w| < 30 pose filter;
   * train split = every `train_step`-th frame, test = the rest;
   * `get_item(idx, rng=)`: `random_sample_size`^2 pixels drawn by
     `--random_sample` (random / random2 / patch; any other value is the full
     frame over the `edge_filter` window), their ray directions and gt
-    colours, per-ray gt depth when a depth loss asks for it, and the
-    background colour (`--bg_color random` draws black or white per item);
+    colours, per-ray gt depth when a depth loss asks for it, the
+    background colour (`--bg_color random` draws black or white per item),
+    and where `exported/label/<id>.png` exists the ScanNet ids remapped to
+    the 20 classes (`label_remapper`): per-ray `pixel_label` and the
+    frame's `gt_semantic_img`; the frame's colour path and the train
+    split's colour paths ride along for BPNet's view selection;
   * `load_init_points`: exported/pcd.ply (+ exported/points.pth colours
     and labels) with the `ranges` crop;
   * `get_campos_ray`: camera centres and centre-pixel directions.
 
 The same numpy generator state draws the same pixels as the JAX dataset.
-Semantic labels come with the semantic slice (ROADMAP item 11).
 """
 from __future__ import annotations
 
@@ -26,6 +29,17 @@ import numpy as np
 import torch
 
 from ..ops.camera import get_dtu_raydir
+
+SCANNET20_REMAP_IDS = [1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 14, 16, 24, 28,
+                       33, 34, 36, 39]
+
+
+def label_remapper() -> np.ndarray:
+    """ScanNet ids 0..255 -> the 20 benchmark classes in order, 255 else."""
+    remap = np.full(256, 255, dtype=np.int32)
+    for i, x in enumerate(SCANNET20_REMAP_IDS):
+        remap[x] = i
+    return remap
 
 
 class ScannetFtDataset:
@@ -39,6 +53,7 @@ class ScannetFtDataset:
         self.width, self.height = self.img_wh
         self.near_far = [opt.near_plane, opt.far_plane]
         self.bg_color = self._parse_bg(opt.bg_color)
+        self.remapper = label_remapper()
         self.build_init_metas()
         intr_path = os.path.join(self.data_dir, self.scan,
                                  "exported/intrinsic/intrinsic_color.txt")
@@ -67,6 +82,10 @@ class ScannetFtDataset:
     def _color_path(self, vid):
         return os.path.join(self.data_dir, self.scan, "exported/color",
                             f"{vid}.jpg")
+
+    def _label_path(self, vid):
+        return os.path.join(self.data_dir, self.scan, "exported/label",
+                            f"{vid}.png")
 
     def _depth_path(self, vid):
         return os.path.join(self.data_dir, self.scan, "exported/depth",
@@ -99,6 +118,8 @@ class ScannetFtDataset:
                                  if i % step != 0]
         else:
             self.test_id_list = self.all_id_list
+        self.train_id_paths = [[self._color_path(i)
+                                for i in self.train_id_list]]
         self.id_list = (self.train_id_list if self.split == "train"
                         else self.test_id_list)
 
@@ -140,6 +161,13 @@ class ScannetFtDataset:
             img = np.asarray(im.resize(self.img_wh, Image.NEAREST),
                              dtype=np.float32) / 255.0
         c2w = np.loadtxt(self._pose_path(vid)).astype(np.float32)
+        sem = None
+        lp = self._label_path(vid)
+        if os.path.exists(lp):
+            with Image.open(lp) as im:
+                sem = np.asarray(im.convert(mode="I").resize(
+                    self.img_wh, Image.NEAREST), dtype=np.int64)
+            sem = self.remapper[np.clip(sem, 0, 255)]
         px, py = self._sample_pixels(rng)
         pix = np.stack([px, py], axis=-1)
         ipx, ipy = px.astype(np.int32), py.astype(np.int32)
@@ -148,6 +176,7 @@ class ScannetFtDataset:
             torch.from_numpy(c2w[:3, :3]),
             getattr(self.opt, "dir_norm", 0) > 0).numpy().reshape(-1, 3)
         item = {
+            "image_path": self._color_path(vid),
             "intrinsic": self.intrinsic,
             "campos": c2w[:3, 3],
             "c2w": c2w,
@@ -158,7 +187,11 @@ class ScannetFtDataset:
             "pixel_idx": pix.reshape(-1, 2),
             "raydir": raydir.astype(np.float32),
             "gt_image": img[ipy, ipx].reshape(-1, 3).astype(np.float32),
+            "train_id_paths": self.train_id_paths,
         }
+        if sem is not None:
+            item["pixel_label"] = sem[ipy, ipx].reshape(-1).astype(np.int32)
+            item["gt_semantic_img"] = sem
         if self._needs_depth():
             dpath = self._depth_path(vid)
             if os.path.exists(dpath):

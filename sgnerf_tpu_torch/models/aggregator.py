@@ -2,9 +2,10 @@
 
 Counterpart of `sgnerf_tpu/models/aggregator.py` for the default variant
 (reference point_aggregators.py): the linear distance kernel, per-neighbour
-PE(feat) ++ PE(dist) -> block1 -> per-neighbour alpha (order 2), weighted
-over K, then the colour head on PE(viewdir). block2/block3/yuze, the other
-distance kernels and order 1 come with ROADMAP item 15.
+PE(feat) ++ PE(dist) -> block1 [-> ++ 96-d semantic embedding ->
+block2_bpnet] -> per-neighbour alpha (order 2), weighted over K, then the
+colour head on PE(viewdir). block2/block3/yuze, the other distance kernels
+and order 1 come with ROADMAP item 15.
 
 Parameters are a plain dict of layer lists, {"w": (in, out), "b": (out,)},
 the reference tree's own layout (models/params.py carries them across).
@@ -32,6 +33,9 @@ class AggregatorConfig:
     point_features_dim: int = 32
     shading_feature_num: int = 256
     shading_feature_mlp_layer1: int = 2
+    shading_feature_mlp_layer2_bpnet: int = 0   # SG-NeRF's semantic block
+    predict_semantic: int = 0        # block2_bpnet's input takes the
+    semantic_dim: int = 96           # semantic_dim-wide BPNet embedding
     shading_alpha_mlp_layer: int = 1
     shading_color_mlp_layer: int = 4
     num_feat_freqs: int = 3
@@ -116,6 +120,11 @@ def init_aggregator_params(seed: int, cfg: AggregatorConfig,
             gen, [C + cfg.viewdir_channels]
             + [C // 2] * (cfg.shading_color_mlp_layer - 1) + [3], gain),
     }
+    if cfg.shading_feature_mlp_layer2_bpnet > 0:
+        # drawn last, so the other blocks' numbers do not move
+        cin = C + (cfg.semantic_dim if cfg.predict_semantic == 1 else 0)
+        params["block2_bpnet"] = _mlp_init(
+            gen, [cin] + [C] * cfg.shading_feature_mlp_layer2_bpnet, gain)
     return {k: [{n: t.to(device) for n, t in layer.items()} for layer in v]
             for k, v in params.items()}
 
@@ -175,8 +184,9 @@ def compute_dists(cfg: AggregatorConfig, sampled_xyz, sampled_xyz_pers,
 
 def use_fused(cfg: AggregatorConfig) -> bool:
     """The reference's gate for the fused kernel (aggregator.py:489-501),
-    over the fields this slice carries."""
+    over the fields this slice carries: block2_bpnet runs un-fused."""
     return (cfg.fused_mlp == "cuda" and cfg.shading_feature_mlp_layer1 > 0
+            and cfg.shading_feature_mlp_layer2_bpnet == 0
             and cfg.shading_alpha_mlp_layer == 1
             and cfg.num_feat_freqs > 0 and cfg.dist_xyz_freq > 0
             and cfg.act_type == "LeakyReLU" and cfg.act_super > 0)
@@ -216,6 +226,7 @@ def fused_paths(cfg: AggregatorConfig, *, K: int, F: int, Dd: int,
 def aggregate(params: Dict[str, Any], cfg: AggregatorConfig, *,
               sampled_embedding,     # (B,R,SR,K,F)
               sampled_conf,          # (B,R,SR,K,1) or None
+              sampled_label_embedding=None,   # (B,R,SR,K,S) or None
               sampled_xyz,           # (B,R,SR,K,3) world
               sampled_xyz_pers,      # (B,R,SR,K,3) perspective
               sample_pnt_mask,       # (B,R,SR,K) bool
@@ -306,6 +317,10 @@ def aggregate(params: Dict[str, Any], cfg: AggregatorConfig, *,
             feat = torch.cat([feat, positional_encoding(
                 feat, cfg.num_feat_freqs)], dim=-1)
         feat = _mlp_apply(cfg, params["block1"], torch.cat([feat, d], -1))
+        if cfg.shading_feature_mlp_layer2_bpnet > 0:
+            if sampled_label_embedding is not None:
+                feat = torch.cat([feat, sampled_label_embedding], dim=-1)
+            feat = _mlp_apply(cfg, params["block2_bpnet"], feat)
         raw_alpha = _mlp_apply(cfg, params["alpha_branch"], feat,
                                act_last=False)
         alpha_nb = raw2out_density(cfg, raw_alpha) * mask[..., None]

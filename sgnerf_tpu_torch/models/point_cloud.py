@@ -1,12 +1,13 @@
 """Neural point cloud: capacity-padded struct of tensors.
 
 PyTorch counterpart of `sgnerf_tpu/models/point_cloud.py`: construction,
-grid spec and build, `prune` and `grow`. Every field of the JAX cloud is carried
-(so either package loads the other's native checkpoints); the semantic
-fields (feats, label, label_prob, sem_embedding) and the per-part rotation
-index ride along unused until the semantic slice (ROADMAP item 11) and
-editing (item 16). Padding rows past the live points sit at 1e9 so they
-never enter the grid.
+grid spec and build, `prune`, `grow` and `set_bpnet_feats`. Every field of
+the JAX cloud is carried (so either package loads the other's native
+checkpoints): the semantic fields (feats, BPNet's input colours; label,
+label_prob and sem_embedding, its outputs, written by SemanticDriver
+and never trained) and the per-part rotation index, which rides along
+unused until editing (ROADMAP item 16). Padding rows past the live points
+sit at 1e9 so they never enter the grid.
 """
 from __future__ import annotations
 
@@ -161,6 +162,19 @@ def grow(cloud: NeuralPointCloud, new_xyz, new_embedding, new_conf,
         getattr(cloud, name)[free] = 0
     cloud.active[free] = True
     cloud.n_active.add_(k)
+    return cloud
+
+
+@torch.no_grad()
+def set_bpnet_feats(cloud: NeuralPointCloud, label_prob, label,
+                    sem_embedding) -> NeuralPointCloud:
+    """Write BPNet's per-point predictions into the first N rows, in place
+    (reference neural_points.py:653-665): label_prob (N,C), label (N,),
+    sem_embedding (N,S), tensors on the cloud's device."""
+    n = label.shape[0]
+    cloud.label[:n] = label.to(torch.int32)
+    cloud.label_prob[:n] = label_prob.to(torch.float32)
+    cloud.sem_embedding[:n] = sem_embedding.to(torch.float32)
     return cloud
 
 

@@ -8,8 +8,10 @@ sigma 0 everywhere and renders to bg_color.
 
 Training (`is_train=True`) jitters the sample depths with uniforms drawn
 by `draw_render_noise` (or passed in as `noise`, so tests can feed the
-noise JAX drew) and rebuilds the attribute table from the cloud's live
-tensors each call: the gather's transpose is a scatter-add (`index_add_`)
+noise JAX drew); with `semantic_guidance` and a per-ray `pixel_label` the
+query is guided by the points' BPNet labels (ops/query.py, with the
+noise's `guide_u`). Training rebuilds the attribute table from the
+cloud's live tensors each call: the gather's transpose is a scatter-add (`index_add_`)
 into that table (the JAX package's `gather_vjp="scatter"`), or with
 `gather_vjp="sorted"` a sort and segment sum in float32 (`gather_rows`).
 Only a float32 table trains.
@@ -65,6 +67,9 @@ class RenderConfig:
     gather_vjp: str = "scatter"      # attribute-gather transpose: "scatter"
     #                                  (index_add_) or "sorted" (gather_rows)
     compute_depth: int = 0           # emit coarse_depth
+    semantic_guidance: int = 0       # guided train-time query; the 96-d
+    #                                  sem_embedding joins the attribute
+    #                                  table (block2_bpnet's input)
     jitter: float = 0.3              # train-time sample jitter fraction
 
     @property
@@ -72,27 +77,42 @@ class RenderConfig:
         return self.radius_limit_scale * max(self.vsize[0], self.vsize[1])
 
 
-def attribute_table(cloud: NeuralPointCloud, gather_dtype: str) -> torch.Tensor:
-    """Per-point attributes packed into one (N, 10+F) row table
-    [xyz | embedding | color | dir | conf], in bf16 when asked: one gather
-    serves every attribute."""
+def attribute_table(cloud: NeuralPointCloud, gather_dtype: str,
+                    semantic: bool = False) -> torch.Tensor:
+    """Per-point attributes packed into one (N, 10+F[+S]) row table
+    [xyz | embedding | color | dir | conf [| sem_embedding]], in bf16 when
+    asked: one gather serves every attribute."""
     packed = torch.cat([cloud.xyz, cloud.embedding, cloud.color, cloud.dir,
-                        cloud.conf], dim=-1)
+                        cloud.conf] + ([cloud.sem_embedding] if semantic
+                                       else []), dim=-1)
     return packed.to(torch.bfloat16) if gather_dtype == "bfloat16" else packed
 
 
 def draw_render_noise(generator: torch.Generator, cfg: RenderConfig, B: int,
-                      R: int, is_train: bool = True) -> Dict[str, torch.Tensor]:
+                      R: int, is_train: bool = True,
+                      grid: Optional[PointGrid] = None,
+                      guidance: bool = False) -> Dict[str, torch.Tensor]:
     """Every random tensor the render forward draws, from `generator` (on
     its device): raygen_u (B,R,D) sample-depth jitter uniforms when
-    training with jitter > 0. Counterpart of the JAX draw_render_noise for
-    the world-coordinate, guidance-free path; the numbers differ from JAX's
-    (the generators differ), so parity tests pass JAX's noise in."""
+    training with jitter > 0; with `guidance`, guide_u, the semantic
+    acceptance uniforms of the candidates' shape: (B,R,SR,C) on the cache
+    path, (B,R,SR,k^3,P) on the bucket path. Counterpart of the JAX
+    draw_render_noise for the world-coordinate path; the numbers differ
+    from JAX's (the generators differ), so parity tests pass JAX's noise
+    in."""
     noise: Dict[str, torch.Tensor] = {}
+    dev = generator.device
     if is_train and cfg.jitter > 0:
         noise["raygen_u"] = torch.rand((B, R, cfg.z_depth_dim),
-                                       generator=generator,
-                                       device=generator.device)
+                                       generator=generator, device=dev)
+    if guidance:
+        spec = grid.spec
+        if spec.nbr_cache > 0 and grid.nbr_packed.shape[0] > 0:
+            shape = (B, R, cfg.SR, spec.nbr_cache)
+        else:
+            ks = spec.kernel_size
+            shape = (B, R, cfg.SR, ks[0] * ks[1] * ks[2], spec.P)
+        noise["guide_u"] = torch.rand(shape, generator=generator, device=dev)
     return noise
 
 
@@ -151,6 +171,7 @@ def render_rays(params: Dict, cloud: NeuralPointCloud, grid: PointGrid,
                 raydir: torch.Tensor, camrotc2w: torch.Tensor, near, far,
                 bg_color: Optional[torch.Tensor] = None,
                 table: Optional[torch.Tensor] = None,
+                pixel_label: Optional[torch.Tensor] = None,
                 noise: Optional[Dict[str, torch.Tensor]] = None,
                 generator: Optional[torch.Generator] = None,
                 is_train: bool = False,
@@ -159,14 +180,19 @@ def render_rays(params: Dict, cloud: NeuralPointCloud, grid: PointGrid,
     coarse_raycolor (B,R,3) and the per-sample march terms. `table` is the
     packed attribute table (eval only; built from the cloud when not given,
     and always when training). `noise` (or draws from `generator`) jitters
-    the samples when `is_train`. `prob` adds the growing probes' outputs."""
+    the samples when `is_train`; when training with cfg.semantic_guidance,
+    `pixel_label` (B,R) guides the query. `prob` adds the growing probes'
+    outputs."""
     B, R, _ = raydir.shape
     if is_train and cfg.gather_dtype != "float32":
         raise NotImplementedError(
             f"training through --gather_dtype {cfg.gather_dtype} is not "
             "ported yet (ROADMAP.md, queue 1 item 17); train with float32")
+    use_sem = (bool(cfg.semantic_guidance) and is_train
+               and pixel_label is not None)
     if noise is None and generator is not None:
-        noise = draw_render_noise(generator, cfg, B, R, is_train=is_train)
+        noise = draw_render_noise(generator, cfg, B, R, is_train=is_train,
+                                  grid=grid, guidance=use_sem)
     noise = noise or {}
     raypos, _, _, ray_ts = near_far_linear_ray_generation(
         campos, raydir, cfg.z_depth_dim, near=near, far=far,
@@ -177,9 +203,15 @@ def render_rays(params: Dict, cloud: NeuralPointCloud, grid: PointGrid,
                         SR=cfg.SR, radius_limit=cfg.radius_limit,
                         knn_mode=cfg.knn_mode, campos=campos, raydir=raydir,
                         tvals=ray_ts, dedup_tile=cfg.dedup_tile,
-                        dedup_cap=cfg.dedup_cap)
+                        dedup_cap=cfg.dedup_cap,
+                        ray_label=pixel_label if use_sem else None,
+                        points_label=cloud.label if use_sem else None,
+                        points_label_prob=(cloud.label_prob if use_sem
+                                           else None),
+                        guide_u=noise.get("guide_u"))
     if table is None or is_train:
-        table = attribute_table(cloud, cfg.gather_dtype)
+        table = attribute_table(cloud, cfg.gather_dtype,
+                                bool(cfg.semantic_guidance))
     return _shade_and_march(params, cloud, cfg, table, q.sample_pidx,
                             q.sample_loc_w, q.ray_mask, campos, raydir,
                             camrotc2w, bg_color, is_train, prob)
@@ -204,6 +236,7 @@ def gather_and_aggregate(params, cloud, cfg: RenderConfig, table, sample_pidx,
     sampled_xyz = g[..., 0:3] * mask[..., None]
     sampled_embedding = g[..., 3:3 + F] * mask[..., None]
     sampled_conf = g[..., 9 + F:10 + F]
+    sampled_sem = g[..., 10 + F:] if cfg.semantic_guidance else None
 
     pers = torch.stack([w2pers(sampled_xyz[b].reshape(-1, 3), camrotc2w[b],
                                campos[b]) for b in range(B)]).reshape(
@@ -221,6 +254,7 @@ def gather_and_aggregate(params, cloud, cfg: RenderConfig, table, sample_pidx,
         params, agg,
         sampled_embedding=sampled_embedding,
         sampled_conf=sampled_conf,
+        sampled_label_embedding=sampled_sem,
         sampled_xyz=sampled_xyz,
         sampled_xyz_pers=pers,
         sample_pnt_mask=mask,

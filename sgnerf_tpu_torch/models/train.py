@@ -5,7 +5,8 @@ optimizer stack, mvs_points_volumetric_model.py:47-141).
   * two Adams: the shading MLPs at `lr`, the per-point tensors at `plr`,
     each on its schedule (iter_exponential_decay, lambda, step, constant);
   * per-field gradient switches (feat/conf/color/dir/xyz_grad): a frozen
-    field gets no gradient and no update;
+    field gets no gradient and no update; the semantic fields (label,
+    label_prob, sem_embedding: BPNet's outputs) are in neither Adam;
   * `alter_step`: phase (step // alter_step) % 3 steps the MLPs in phase 0
     and the points in phase 1.
 
@@ -173,7 +174,8 @@ def loss_and_grads(state: TrainState, grid, cfg: RenderConfig,
             params, cloud, grid, cfg, campos=batch["campos"],
             raydir=batch["raydir"], camrotc2w=batch["camrotc2w"],
             near=batch["near"], far=batch["far"],
-            bg_color=batch.get("bg_color"), noise=noise,
+            bg_color=batch.get("bg_color"),
+            pixel_label=batch.get("pixel_label"), noise=noise,
             generator=generator, is_train=True)
         if "ray_depth_mask" in batch:
             out["ray_depth_mask"] = batch["ray_depth_mask"]
@@ -209,7 +211,8 @@ def train_step(state: TrainState, grid, cfg: RenderConfig, tcfg: TrainConfig,
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One optimization step, in place. batch: campos (B,3), raydir (B,R,3),
     camrotc2w (B,3,3), gt_image (B,R,3), near/far, bg_color (3,), optional
-    gt_depth/gt_mask/ray_depth_mask (B,R). The render noise comes from
+    gt_depth/gt_mask/ray_depth_mask (B,R) and pixel_label (B,R) int (the
+    semantic-guided query's ray labels). The render noise comes from
     `noise` (render_rays' argument) or is drawn from `generator`. Returns
     (state, losses): detached 0-d tensors, not synchronised."""
     losses, g_net, g_pts = loss_and_grads(state, grid, cfg, tcfg, batch,

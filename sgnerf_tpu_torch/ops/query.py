@@ -7,7 +7,9 @@ never compacted, invalid slots carry masks.
 
 XLA's top_k returns ties in index order and the outputs depend on it;
 `torch.topk` makes no such promise, so every top-k here is a stable sort.
-Semantic guidance is a train-time sampler and comes with ROADMAP item 11.
+Semantic guidance (a train-time sampler) keeps the exact path: a candidate
+whose label differs from the ray's is accepted at random, with pre-drawn
+uniforms `guide_u` (renderer.draw_render_noise).
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ class QueryResult(NamedTuple):
     sample_loc_w: torch.Tensor     # (B,R,SR,3) world-space shading points
     sample_loc_mask: torch.Tensor  # (B,R,SR) bool: slot holds a shading point
     ray_mask: torch.Tensor         # (B,R) bool: ray has >= 1 neighbour
+    sample_label: Optional[torch.Tensor] = None  # (B,R,SR) int32 (guided)
 
 
 def topk_stable(score: torch.Tensor, k: int, largest: bool = True):
@@ -51,26 +54,38 @@ def compact_hits(hit: torch.Tensor, SR: int):
 
 
 def mask_and_compact_samples(raypos: torch.Tensor, grid: PointGrid, SR: int,
+                             ray_label: Optional[torch.Tensor] = None,
                              campos=None, raydir=None, tvals=None):
     """Mask ray samples by dilated occupancy and keep the first SR hits.
-    raypos (B,R,D,3) -> (sample_loc_w (B,R,SR,3), sample_mask (B,R,SR)).
-    With campos/raydir/tvals and the two-level path active, positions are
-    recomputed from the selected depths (campos + t*dir)."""
+    raypos (B,R,D,3) -> (sample_loc_w (B,R,SR,3), sample_mask (B,R,SR),
+    sample_label (B,R,SR) int32: the ray's label on its shading points, 0
+    elsewhere, or None without ray_label (B,R)). With campos/raydir/tvals
+    and the two-level path active, positions are recomputed from the
+    selected depths (campos + t*dir)."""
     spec = grid.spec
     B, R, D, _ = raypos.shape
     two_level = spec.coarse_factor > 1 and grid.coarse_occ.numel() > 0
     if (two_level and campos is not None and raydir is not None
             and tvals is not None and D % spec.seg_len == 0):
-        return _two_level_hits_lazy(campos, raydir, tvals, grid, SR)
-    if two_level:
-        smask, gather_d = _two_level_hits(raypos, grid, SR)
+        loc, smask = _two_level_hits_lazy(campos, raydir, tvals, grid, SR)
     else:
-        coords = voxel_coords(raypos, spec)
-        occ = take3d(grid.occ_mask, clip_coords(coords, spec.vdim),
-                     spec.vdim) > 0
-        smask, gather_d = compact_hits(in_bounds(coords, spec) & occ, SR)
-    loc = torch.gather(raypos, 2, gather_d[..., None].expand(-1, -1, -1, 3))
-    return torch.where(smask[..., None], loc, torch.zeros_like(loc)), smask
+        if two_level:
+            smask, gather_d = _two_level_hits(raypos, grid, SR)
+        else:
+            coords = voxel_coords(raypos, spec)
+            occ = take3d(grid.occ_mask, clip_coords(coords, spec.vdim),
+                         spec.vdim) > 0
+            smask, gather_d = compact_hits(in_bounds(coords, spec) & occ, SR)
+        loc = torch.gather(raypos, 2,
+                           gather_d[..., None].expand(-1, -1, -1, 3))
+        loc = torch.where(smask[..., None], loc, torch.zeros_like(loc))
+    lbl = None
+    if ray_label is not None:
+        # the ray's label on each of its samples (reference :110)
+        lbl = torch.where(smask, ray_label[..., None].to(torch.int32),
+                          torch.zeros((), dtype=torch.int32,
+                                      device=smask.device))
+    return loc, smask, lbl
 
 
 def _coarse_segment_hits(mpos, grid: PointGrid, C: int):
@@ -172,7 +187,11 @@ def bucket_candidates(grid: PointGrid, sample_loc_w: torch.Tensor,
 def query_neighbors(grid: PointGrid, raypos: torch.Tensor, K: int, SR: int,
                     radius_limit: float, knn_mode: str = "exact",
                     campos=None, raydir=None, tvals=None,
-                    dedup_tile: int = 64, dedup_cap: int = 160) -> QueryResult:
+                    dedup_tile: int = 64, dedup_cap: int = 160,
+                    ray_label: Optional[torch.Tensor] = None,
+                    points_label: Optional[torch.Tensor] = None,
+                    points_label_prob: Optional[torch.Tensor] = None,
+                    guide_u: Optional[torch.Tensor] = None) -> QueryResult:
     """Sample masking -> SR compaction -> KNN. raypos (B,R,D,3); radius
     0 disables the radius test. knn_mode "fused" (bf16 cache) runs kernel
     K1 on the gathered cache rows; "dedup" (bf16 cache, raster rays) gathers
@@ -180,11 +199,20 @@ def query_neighbors(grid: PointGrid, raypos: torch.Tensor, K: int, SR: int,
     (at most `dedup_cap` rows a tile) and runs kernel K6 on them: the same
     ids as "fused" wherever a tile holds no more than dedup_cap distinct
     rows, no neighbours for the shading points past the cap; "exact" is
-    the XLA-path statement."""
+    the XLA-path statement.
+
+    Semantic guidance (ray_label (B,R), the points' label (N,) and
+    label_prob (N,C), guide_u of the candidates' shape) takes the exact
+    path whatever knn_mode says, as the JAX package does: a candidate is
+    accepted when its label matches the ray's or either is 0 (void), else
+    with probability clip(2 - int(10 prob), 0, 10) / 10 of its own label's
+    probability, as guide_u < that."""
     spec = grid.spec
     B, R, D, _ = raypos.shape
-    sample_loc_w, smask = mask_and_compact_samples(
-        raypos, grid, SR, campos=campos, raydir=raydir, tvals=tvals)
+    guided = ray_label is not None
+    sample_loc_w, smask, sample_label = mask_and_compact_samples(
+        raypos, grid, SR, ray_label, campos=campos, raydir=raydir,
+        tvals=tvals)
     # the radius test runs in f32, like jnp.asarray(radius, f32) ** 2
     r2 = float(np.float32(radius_limit) * np.float32(radius_limit))
 
@@ -197,7 +225,8 @@ def query_neighbors(grid: PointGrid, raypos: torch.Tensor, K: int, SR: int,
         dev = raypos.device
         center = ((cc.to(torch.float32) + 0.5) * spec.vsize_t(dev)
                   + spec.min_corner_t(dev))
-        if knn_mode == "dedup" and spec.cache_dtype == "bfloat16":
+        if (knn_mode == "dedup" and spec.cache_dtype == "bfloat16"
+                and not guided):
             sample_pidx = _dedup_select(
                 grid, slot, slot_ok, (sample_loc_w - center), r2, K, SR,
                 dedup_tile * SR, dedup_cap)
@@ -206,7 +235,8 @@ def query_neighbors(grid: PointGrid, raypos: torch.Tensor, K: int, SR: int,
                 (sample_pidx.reshape(B, R, -1) >= 0).any(dim=-1))
         max_d = grid.nbr_packed.shape[0]
         rows = grid.nbr_packed[slot.clamp(0, max_d - 1).long()]
-        if knn_mode == "fused" and spec.cache_dtype == "bfloat16":
+        if (knn_mode == "fused" and spec.cache_dtype == "bfloat16"
+                and not guided):
             Mq = B * R * SR
             sel = fused_knn_select(
                 rows.reshape(Mq, -1), (sample_loc_w - center).reshape(Mq, 3),
@@ -226,14 +256,37 @@ def query_neighbors(grid: PointGrid, raypos: torch.Tensor, K: int, SR: int,
             grid, sample_loc_w, smask)
 
     in_radius = (d2 <= r2) if r2 > 0 else torch.ones_like(cand_ok)
+    ok = cand_ok & in_radius
+    if guided:
+        ok = ok & _guide_accept(cand, sample_label, points_label,
+                                points_label_prob, guide_u)
     big = torch.finfo(torch.float32).max
-    d2m = torch.where(cand_ok & in_radius, d2,
-                      torch.full_like(d2, big)).reshape(flat_shape)
+    d2m = torch.where(ok, d2, torch.full_like(d2, big)).reshape(flat_shape)
     top_d2, top_idx = topk_stable(d2m, K, largest=False)
     sel = torch.gather(cand.reshape(flat_shape), -1, top_idx)
     sample_pidx = torch.where(top_d2 < big, sel, torch.full_like(sel, -1))
     return QueryResult(sample_pidx.to(torch.int32), sample_loc_w, smask,
-                       (sample_pidx.reshape(B, R, -1) >= 0).any(dim=-1))
+                       (sample_pidx.reshape(B, R, -1) >= 0).any(dim=-1),
+                       sample_label)
+
+
+def _guide_accept(cand, sample_label, points_label, points_label_prob,
+                  guide_u):
+    """The semantic-guidance predicate over the candidates (reference
+    query_point_indices_worldcoords.py:548-556, JAX ops/query.py:386-412):
+    cand (B,R,SR,C) or (B,R,SR,Kv,P) point ids, -1 empty."""
+    N = points_label.shape[0]
+    c = cand.clamp(0, N - 1).long()
+    center = sample_label.reshape(sample_label.shape
+                                  + (1,) * (cand.dim() - sample_label.dim()))
+    label_v = points_label[c].to(torch.int32)
+    C = points_label_prob.shape[-1]
+    prob_v = torch.gather(points_label_prob[c], -1,
+                          label_v.clamp(0, C - 1).long()[..., None])[..., 0]
+    label_prob_i = (prob_v * 10.0).to(torch.int32)   # truncation, as int()
+    p_acc = torch.clamp(2 - label_prob_i, 0, 10).to(torch.float32) / 10.0
+    return ((center == label_v) | (label_v == 0) | (center == 0)
+            | (guide_u < p_acc))
 
 
 def _dedup_select(grid: PointGrid, slot, slot_ok, delta, r2, K: int, SR: int,

@@ -255,14 +255,10 @@ def _unsupported(flag: str, item: str):
 
 
 def _check_slice(opt):
-    if int(opt.semantic_guidance) or int(opt.predict_semantic):
-        _unsupported("--semantic_guidance/--predict_semantic", "item 11")
     if (int(opt.shading_feature_mlp_layer2) or int(opt.shading_feature_mlp_layer3)
             or getattr(opt, "which_agg_model", "viewmlp") != "viewmlp"):
         _unsupported("--shading_feature_mlp_layer2/3 and viewmlp_yuze",
                      "item 15")
-    if int(opt.shading_feature_mlp_layer2_bpnet):
-        _unsupported("--shading_feature_mlp_layer2_bpnet", "item 11")
     if int(getattr(opt, "wcoord_query", 1)) == 0:
         _unsupported("--wcoord_query 0", "item 12")
     if int(getattr(opt, "scene_shards", 0) or 0) > 1:
@@ -360,6 +356,8 @@ def configs_from_opt(opt, device=None):
         point_features_dim=opt.point_features_dim,
         shading_feature_num=opt.shading_feature_num,
         shading_feature_mlp_layer1=opt.shading_feature_mlp_layer1,
+        shading_feature_mlp_layer2_bpnet=opt.shading_feature_mlp_layer2_bpnet,
+        predict_semantic=opt.predict_semantic,
         shading_alpha_mlp_layer=opt.shading_alpha_mlp_layer,
         shading_color_mlp_layer=opt.shading_color_mlp_layer,
         num_feat_freqs=opt.num_feat_freqs,
@@ -391,6 +389,7 @@ def configs_from_opt(opt, device=None):
         gather_dtype=opt.gather_dtype,
         gather_vjp=gv,
         knn_mode=knn,
+        semantic_guidance=opt.semantic_guidance,
         # the reference emits depth when compute_depth OR any depth loss is
         # requested (neural_points_volumetric_model.py:211)
         compute_depth=int(bool(opt.compute_depth)

@@ -13,13 +13,17 @@ Counterpart of run/train_ft.py (reference run/train_ft.py):
      G steps between host events); every `--prob_freq` steps, after the
      prune, grow points into the scan's holes (runtime/growing.py; with
      the default opacity threshold 0.7, not `--prob_thresh`, as
-     run/train_ft.py calls it);
+     run/train_ft.py calls it); with `--predict_semantic 1`, BPNet refreshes
+     the points' semantics before each step group (runtime/semantic.py,
+     in the background after the first) and its 2D labels become the
+     batch's pixel labels; a refresh in flight is applied before saves and
+     tests;
   4. final save, reference `.pth` export and test.
 `--profile_dir` writes a torch.profiler trace of steps [profile_start,
 profile_start + profile_steps).
 
 Not ported yet, refused at startup: the MVS bootstrap (`--load_points 0`,
-item 14), `--bgmodel plane` (item 13), the semantic branch (item 11).
+item 14), `--bgmodel plane` (item 13).
 """
 from __future__ import annotations
 
@@ -33,9 +37,10 @@ import numpy as np
 import torch
 
 from ..data import create_dataset
-from ..options.options import TrainOptions
+from ..options.options import TrainOptions, _check_slice
 from ..runtime.growing import probe_and_grow
 from ..runtime.scene_model import SceneModel, batch_to_device
+from ..runtime.semantic import SemanticDriver
 from ..utils.metrics import psnr
 from ..utils.visualizer import Visualizer
 
@@ -78,13 +83,10 @@ class ItemPrefetcher:
 
 def check_flags(opt):
     """Refuse, before any work, what this driver does not port yet."""
+    _check_slice(opt)
     if str(getattr(opt, "bgmodel", "no")).endswith("plane"):
         raise NotImplementedError(
             "--bgmodel plane is not ported yet (ROADMAP.md, queue 1 item 13)")
-    if int(opt.predict_semantic) or int(opt.semantic_guidance):
-        raise NotImplementedError(
-            "--predict_semantic/--semantic_guidance are not ported yet "
-            "(ROADMAP.md, queue 1 item 11)")
     if opt.gather_dtype != "float32":
         raise NotImplementedError(
             f"training through --gather_dtype {opt.gather_dtype} is not "
@@ -150,6 +152,9 @@ def main(args=None):
         xyz, feats, labels = dataset.load_init_points()
         model.setup_from_points(xyz, feats, labels, dataset=dataset)
 
+    semantic = (SemanticDriver(opt, model.device)
+                if int(opt.predict_semantic) else None)
+
     total_steps = int(model.step)
     maximum_step = opt.maximum_step or 100000
     rng = np.random.default_rng(1)
@@ -184,8 +189,14 @@ def main(args=None):
                     acts.append(torch.profiler.ProfilerActivity.CUDA)
                 profiler = torch.profiler.profile(activities=acts)
                 profiler.start()
-            batches = [batch_to_device(get_item(), model.device)
-                       for _ in range(G)]
+            items = [get_item() for _ in range(G)]
+            if semantic is not None:
+                semantic.maybe_refresh(model, items[0], steps=G)
+                for it in items:
+                    pl = semantic.pixel_labels_for(it)
+                    if pl is not None:
+                        it["pixel_label"] = pl
+            batches = [batch_to_device(it, model.device) for it in items]
             for losses in model.optimize_multi(batches):
                 visualizer.accumulate_losses(losses)
             total_steps += G
@@ -208,6 +219,11 @@ def main(args=None):
             if opt.prob_freq > 0 and total_steps % opt.prob_freq == 0:
                 probe_and_grow(model, dataset, opt,
                                int(grow_rng.integers(0, 2 ** 32)))
+            if semantic is not None and (
+                    total_steps % opt.save_iter_freq == 0
+                    or (opt.test_freq > 0
+                        and total_steps % opt.test_freq == 0)):
+                semantic.flush(model)
             if total_steps % opt.save_iter_freq == 0:
                 model.save_checkpoint(total_steps)
             if opt.save_point_freq > 0 and \
@@ -231,6 +247,8 @@ def main(args=None):
             profiler.stop()
         if prefetcher is not None:
             prefetcher.close()
+    if semantic is not None:
+        semantic.flush(model)
 
     print(f"training done in {time.time() - t_start:.1f}s; saving final")
     model.save_checkpoint(total_steps)

@@ -27,12 +27,15 @@ from ..models.aggregator import init_aggregator_params
 from ..models.checkpoint_io import (convert_reference_checkpoint,
                                     export_reference_checkpoint, load_native,
                                     load_reference_states,
+                                    load_semantic_embedding,
                                     load_torch_state_dict, save_native,
+                                    save_semantic_embedding,
                                     unpack_embedding_modes)
 from ..models.params import params_from_jax, params_to_jax
 from ..models.point_cloud import (NeuralPointCloud, build_grid,
                                   grid_spec_for_cloud, grow as grow_cloud,
-                                  make_point_cloud, prune as prune_cloud)
+                                  make_point_cloud, prune as prune_cloud,
+                                  set_bpnet_feats)
 from ..models.renderer import attribute_table, render_rays
 from ..models.train import (TrainState, adam_init, create_train_state,
                             train_step, train_step_multi, trained_fields)
@@ -57,6 +60,9 @@ def batch_to_device(item: Dict, device) -> Dict[str, torch.Tensor]:
          "camrotc2w": t(item["camrotc2w"])[None],
          "near": float(item["near"]), "far": float(item["far"]),
          "bg_color": t(item["bg_color"]), "gt_image": t(item["gt_image"])[None]}
+    if "pixel_label" in item:
+        b["pixel_label"] = torch.as_tensor(
+            np.asarray(item["pixel_label"], np.int32), device=device)[None]
     if "gt_depth" in item:
         b["gt_depth"] = t(item["gt_depth"])[None]
         b["gt_mask"] = t(item["gt_mask"])[None]
@@ -97,9 +103,17 @@ class SceneModel:
         """The eval renders' packed attribute table of the current cloud."""
         if self._table is None:
             with torch.no_grad():
-                self._table = attribute_table(self.cloud,
-                                              self.cfg.gather_dtype)
+                self._table = attribute_table(
+                    self.cloud, self.cfg.gather_dtype,
+                    bool(self.cfg.semantic_guidance))
         return self._table
+
+    def set_semantics(self, label_prob: torch.Tensor, label: torch.Tensor,
+                      sem_embedding: torch.Tensor):
+        """BPNet's per-point outputs into the cloud (SemanticDriver's
+        refresh); the cached eval table goes with the old ones."""
+        set_bpnet_feats(self.cloud, label_prob, label, sem_embedding)
+        self._table = None
 
     # ------------------------------------------------------------- checkpoints
 
@@ -145,6 +159,13 @@ class SceneModel:
                 label=pts["label"], Rw2c=pts["Rw2c"],
                 capacity=self._capacity_for(len(pts["xyz"])),
                 device=self.device)
+            # the companion BPNet embedding, when one was saved
+            sem_path = path.replace("_net_ray_marching.pth",
+                                    "_semanticEmbedding.pth")
+            if os.path.exists(sem_path):
+                sem = load_semantic_embedding(sem_path)
+                cloud.sem_embedding[:len(sem)] = torch.as_tensor(
+                    sem, device=self.device)
         else:
             tree, meta = load_native(path)
             params = tree["params"]
@@ -180,6 +201,11 @@ class SceneModel:
         export_reference_checkpoint(
             params_to_jax(self.params), pts,
             os.path.join(self.expr_dir, f"{it}_net_ray_marching.pth"))
+        # the companion BPNet point embedding (reference
+        # saveSemanticEmbedding), when a refresh wrote one
+        save_semantic_embedding(
+            c["sem_embedding"][act],
+            os.path.join(self.expr_dir, f"{it}_semanticEmbedding.pth"))
         torch.save({"best_PSNR": float(self.best_psnr),
                     "best_iter": int(self.best_iter),
                     "epoch_count": 0, "total_steps": int(it)},

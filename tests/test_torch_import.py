@@ -21,7 +21,10 @@ names = [m.name for m in pkgutil.walk_packages(sgnerf_tpu_torch.__path__,
 for n in names:
     importlib.import_module(n)
 assert len(names) >= 20, names
-for want in ("ops.pallas_gather", "runtime.growing", "dev.probe_gather"):
+for want in ("ops.pallas_gather", "runtime.growing", "dev.probe_gather",
+             "ops.sparse", "models.mvs", "models.bpnet.bpnet",
+             "models.bpnet.unet2d", "models.bpnet.unet3d",
+             "models.bpnet.linking", "runtime.semantic"):
     assert "sgnerf_tpu_torch." + want in names, want
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "triton", "sgnerf_tpu",
@@ -146,9 +149,9 @@ def test_scene_model_device_comes_from_gpu_ids():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--semantic_guidance", "1"],
+    ["--gather_dtype", "int8"],
     ["--shading_feature_mlp_layer3", "1"],
-    ["--shading_feature_mlp_layer2_bpnet", "1"],
+    ["--agg_intrp_order", "1"],
     ["--which_agg_model", "viewmlp_yuze"],
     ["--wcoord_query", "0"],
     ["--scene_shards", "2"],
@@ -191,3 +194,23 @@ def test_opt_in_kernel_flags_resolve_as_in_the_jax_package(flag, value):
     card, _, _ = configs_from_opt(_opt([f"--{flag}", value, "--gpu_ids",
                                         "0"]))
     assert getattr(card.agg, flag) is True and card.agg.fused_mlp == "cuda"
+
+
+def test_semantic_flags_resolve_as_in_the_jax_package():
+    """The scene0241_02_semanticGuidance.sh flags: the guided query, the
+    96-d embedding into block2_bpnet, and block2_bpnet's un-fused path on
+    the card too (the JAX package's use_fused gate)."""
+    from sgnerf_tpu.options.options import configs_from_opt as jconfigs
+    from sgnerf_tpu_torch.options import configs_from_opt
+    flags = ["--semantic_guidance", "1", "--predict_semantic", "1",
+             "--shading_feature_mlp_layer2_bpnet", "1",
+             "--bpnet_dtype", "bfloat16"]
+    cfg, _, _ = configs_from_opt(_opt(flags))
+    jcfg, _, _ = jconfigs(_opt(flags))
+    assert cfg.semantic_guidance == jcfg.semantic_guidance == 1
+    for f in ("shading_feature_mlp_layer2_bpnet", "predict_semantic",
+              "semantic_dim"):
+        assert getattr(cfg.agg, f) == getattr(jcfg.agg, f), f
+    from sgnerf_tpu_torch.models.aggregator import use_fused
+    card, _, _ = configs_from_opt(_opt(flags + ["--gpu_ids", "0"]))
+    assert card.agg.fused_mlp == "cuda" and not use_fused(card.agg)

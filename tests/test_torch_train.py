@@ -427,9 +427,9 @@ def test_train_ft_cli_runs_and_writes_checkpoints(scans, tmp_path):
     assert (tmp_path / "prof" / "train_ft_2.json").exists()
 
 
-@pytest.mark.parametrize("flags", [["--semantic_guidance", "1"],
+@pytest.mark.parametrize("flags", [["--wcoord_query", "0"],
                                    ["--bgmodel", "plane"],
-                                   ["--predict_semantic", "1"],
+                                   ["--gather_dtype", "int8"],
                                    ["--gather_dtype", "bfloat16"]])
 def test_train_ft_refuses_unported_flags_at_startup(scans, tmp_path, flags):
     from sgnerf_tpu_torch.run import train_ft
