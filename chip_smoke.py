@@ -127,7 +127,29 @@ fine-tune train step (the flags of scene0113_00_default.sh). Phases:
      on its checkpoint with the eval script's flags (and the two semantic
      flags): K1 once a chunk, K2 never, the frame once more under
      torch.profiler, and the frame equal to the knn_mode="exact" frame
-     within 1e-6.
+     within 1e-6;
+ 17. block3 at full width (dev_scripts/myexp_scannet_colmap/scene0000_00.sh:
+     scene0113_00_default.sh's flags with --shading_feature_mlp_layer3 2)
+     on the phase-3 room scan with block3 weights: the gate's path is the
+     un-fused one; point colour's gradient norm; 8 SceneModel.optimize
+     steps of 1024 rays with the counters reset just before: no kernel
+     launches, the loss falls, Adam moves the colours; one step under
+     torch.profiler. Then train_ft.main with the script's flags for 10
+     steps on phase 8's export; then one 640x480 eval frame with
+     test_default.sh's bf16 cache and gathers, block3 and the train
+     script's point modes: K1 once a chunk and nothing else, under
+     torch.profiler once, equal to the knn_mode="exact" frame within
+     RENDER_ATOL;
+ 18. the perspective-space path (--wcoord_query 0) at full width on a
+     seeded NeRF-synthetic scene the script writes (1M points on a sphere
+     and a torus in load_blender_cloud's pickle, 4 train and 2 test
+     800x800 RGBA views; tests/test_cli_blender.py's flags at width 256,
+     K 8, D 400, 1024-ray batches): the frustum spec, 8 train steps (K2 and
+     K3 once a step, nothing else), K2 and K3 against their plain versions
+     on the step's own chunk (phases 5's and 7's checks and tolerances);
+     then one 800x800 test frame and its frame grid, timed: K2 once a
+     chunk, under torch.profiler once, within RENDER_ATOL of the un-fused
+     path's frame.
 
 Any failure raises and the script exits non-zero before its last line.
 The last line is {"ok": true, "device": {...}}; the line before it holds
@@ -553,7 +575,8 @@ def main():
     from sgnerf_tpu_torch.runtime.scene_model import SceneModel
 
     for d in ("smoke", "smoke_ft", "smoke_scans", "smoke_grow", "smoke_sem",
-              "smoke_sem_scans"):                     # this script's outputs
+              "smoke_sem_scans", "smoke_b3", "smoke_nerf",
+              "smoke_pers"):                          # this script's outputs
         shutil.rmtree(os.path.join(REPO, "build", d), ignore_errors=True)
 
     t_last = [time.perf_counter()]
@@ -703,6 +726,14 @@ def main():
     phase16_semantic()
     stamp("phase 16")
 
+    # ---- 17. block3 (scene0000_00.sh) at full width
+    phase17_block3(item)
+    stamp("phase 17")
+
+    # ---- 18. the perspective path (--wcoord_query 0) at full width
+    phase18_perspective()
+    stamp("phase 18")
+
     log(json.dumps({"kernels": [records[k] for k in sorted(records)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -767,11 +798,13 @@ def phase5_k1(captured, launches, nbr_packed):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
-def phase5_k2(captured, launches):
+def hold_k2(args, kwargs, label):
+    """K2 against its plain version on captured (args, kwargs), in f32 and
+    bf16 (K2_TOL), each timed with CUDA events; the bf16 mode must differ
+    from the f32 one. Returns {bf16: (max |diff|, ms, plain ms, out)}."""
     import torch
     from sgnerf_tpu_torch.ops.fused_agg import (fused_block1_alpha,
                                                 fused_block1_alpha_plain)
-    args, kwargs = captured["fused_block1_alpha"]
     plain_kw = {k: v for k, v in kwargs.items() if k != "bwd"}
     errs = {}
     with torch.inference_mode():
@@ -784,7 +817,7 @@ def phase5_k2(captured, launches):
             ok = torch.allclose(got, ref, **K2_TOL[bf16])
             t_k = cuda_ms(lambda: fused_block1_alpha(*args, **kw2))
             t_p = cuda_ms(lambda: fused_block1_alpha_plain(*args, **kwp))
-            log(f"phase 5: K2 fused_block1_alpha bf16={bf16} M="
+            log(f"{label}: K2 fused_block1_alpha bf16={bf16} M="
                 f"{args[0].shape[0]} K={kwargs['K']}: max |diff| {err:.3e} "
                 f"(max |ref| {float(ref.abs().max()):.3f}, tolerance "
                 f"{K2_TOL[bf16]}) ; {t_k:.3f} ms vs plain {t_p:.3f} ms")
@@ -792,8 +825,14 @@ def phase5_k2(captured, launches):
             errs[bf16] = (err, t_k, t_p, got)
     # the bf16 mode really rounds: its output differs from the f32 mode's
     mode_diff = float((errs[True][3] - errs[False][3]).abs().max())
-    log(f"phase 5: K2 kernel bf16 vs f32 mode: max |diff| {mode_diff:.3e}")
+    log(f"{label}: K2 kernel bf16 vs f32 mode: max |diff| {mode_diff:.3e}")
     assert mode_diff > 0.0
+    return errs
+
+
+def phase5_k2(captured, launches):
+    args, kwargs = captured["fused_block1_alpha"]
+    errs = hold_k2(args, kwargs, "phase 5")
     main_bf16 = bool(kwargs["bf16"])
     err, t_k, t_p, _ = errs[main_bf16]
     feat, d, w, block1, alpha = args
@@ -1354,8 +1393,7 @@ def phase6_7_train(item):
     import torch
     from sgnerf_tpu_torch.models import aggregator as agg_mod
     from sgnerf_tpu_torch.options import TrainOptions
-    from sgnerf_tpu_torch.ops.fused_agg import (fused_block1_alpha_bwd,
-                                                fused_block1_alpha_bwd_plain)
+    from sgnerf_tpu_torch.ops.fused_agg import fused_block1_alpha_bwd
     from sgnerf_tpu_torch.runtime.scene_model import SceneModel
 
     opt = TrainOptions().parse(TRAIN_FLAGS + [
@@ -1424,35 +1462,7 @@ def phase6_7_train(item):
     feat, d, w, block1, alpha = captured["args"]
     g = captured["g"]
     kw = {k: v for k, v in captured["kw"].items() if k not in ("bf16", "bwd")}
-    res = {}
-    for bf16 in (False, True):
-        got = _flat_grads(fused_block1_alpha_bwd(feat, d, w, block1, alpha,
-                                                 g, bf16=bf16, **kw))
-        hs_k = phase7_k3a_is_k2(feat, d, w, block1, alpha, kw, bf16)
-        ref = _flat_grads(fused_block1_alpha_bwd_plain(
-            feat, d, w, block1, alpha, g, bf16=bf16, branches=hs_k, **kw))
-        own = _flat_grads(fused_block1_alpha_bwd_plain(
-            feat, d, w, block1, alpha, g, bf16=bf16, **kw))
-        torch.cuda.synchronize()
-        rel = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
-               for a, b in zip(got, ref)]
-        rel_own = [float((a - b).abs().max())
-                   / max(float(b.abs().max()), 1e-30)
-                   for a, b in zip(got, own)]
-        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
-        del ref, own, hs_k
-        t_k = cuda_ms(lambda: fused_block1_alpha_bwd(
-            feat, d, w, block1, alpha, g, bf16=bf16, **kw))
-        t_p = cuda_ms(lambda: fused_block1_alpha_bwd_plain(
-            feat, d, w, block1, alpha, g, bf16=bf16, **kw))
-        log(f"phase 7: K3 fused_block1_alpha_bwd bf16={bf16} M="
-            f"{feat.shape[0]} K={kw['K']}: max |diff| / max |plain| per "
-            f"output against the plain K3 in f32 on the forward's branches "
-            f"{[f'{v:.2e}' for v in rel]} (tolerance {K3_TOL[bf16]}); "
-            f"against the plain K3 on its own branches "
-            f"{[f'{v:.2e}' for v in rel_own]}; {t_k:.3f} ms vs plain "
-            f"{t_p:.3f} ms")
-        res[bf16] = (err, t_k, t_p, rel)
+    res = hold_k3(captured, "phase 7")
     again = fused_block1_alpha_bwd(feat, d, w, block1, alpha, g, bf16=False,
                                    **kw)
     first = fused_block1_alpha_bwd(feat, d, w, block1, alpha, g, bf16=False,
@@ -1474,7 +1484,52 @@ def phase6_7_train(item):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": t_lib}
 
 
-def phase7_k3a_is_k2(feat, d, w, block1, alpha, kw, bf16):
+def hold_k3(captured, label):
+    """K3 against its plain version on a step's captured K2 arguments and
+    cotangent (capture_first_grad), in f32 and bf16: per output, max |diff|
+    / max |plain| against the plain K3 on the kernel forward's LeakyReLU
+    branches (K3_TOL; phase7_k3a_is_k2 first), and logged against the plain
+    K3 on its own; each timed with CUDA events. Returns {bf16: (max |diff|,
+    ms, plain ms, relative errors)}; the caller asserts the tolerance."""
+    import torch
+    from sgnerf_tpu_torch.ops.fused_agg import (fused_block1_alpha_bwd,
+                                                fused_block1_alpha_bwd_plain)
+    feat, d, w, block1, alpha = captured["args"]
+    g = captured["g"]
+    kw = {k: v for k, v in captured["kw"].items() if k not in ("bf16", "bwd")}
+    res = {}
+    for bf16 in (False, True):
+        got = _flat_grads(fused_block1_alpha_bwd(feat, d, w, block1, alpha,
+                                                 g, bf16=bf16, **kw))
+        hs_k = phase7_k3a_is_k2(feat, d, w, block1, alpha, kw, bf16, label)
+        ref = _flat_grads(fused_block1_alpha_bwd_plain(
+            feat, d, w, block1, alpha, g, bf16=bf16, branches=hs_k, **kw))
+        own = _flat_grads(fused_block1_alpha_bwd_plain(
+            feat, d, w, block1, alpha, g, bf16=bf16, **kw))
+        torch.cuda.synchronize()
+        rel = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+               for a, b in zip(got, ref)]
+        rel_own = [float((a - b).abs().max())
+                   / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(got, own)]
+        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        del ref, own, hs_k
+        t_k = cuda_ms(lambda: fused_block1_alpha_bwd(
+            feat, d, w, block1, alpha, g, bf16=bf16, **kw))
+        t_p = cuda_ms(lambda: fused_block1_alpha_bwd_plain(
+            feat, d, w, block1, alpha, g, bf16=bf16, **kw))
+        log(f"{label}: K3 fused_block1_alpha_bwd bf16={bf16} M="
+            f"{feat.shape[0]} K={kw['K']}: max |diff| / max |plain| per "
+            f"output against the plain K3 in f32 on the forward's branches "
+            f"{[f'{v:.2e}' for v in rel]} (tolerance {K3_TOL[bf16]}); "
+            f"against the plain K3 on its own branches "
+            f"{[f'{v:.2e}' for v in rel_own]}; {t_k:.3f} ms vs plain "
+            f"{t_p:.3f} ms")
+        res[bf16] = (err, t_k, t_p, rel)
+    return res
+
+
+def phase7_k3a_is_k2(feat, d, w, block1, alpha, kw, bf16, label="phase 7"):
     """Phase 7: K3a's last activations, weighted and summed over K in
     order, equal K2's features bit for bit (the backward reads the
     forward's activations); the activations on the other LeakyReLU branch
@@ -1494,7 +1549,7 @@ def phase7_k3a_is_k2(feat, d, w, block1, alpha, kw, bf16):
     hs_p = k3a_recompute_plain(feat, d, block1, alpha, **akw)[1]
     flip = (hs_k >= 0) != (hs_p >= 0)
     near = bool(torch.allclose(hs_k[flip], hs_p[flip], **K2_TOL[bf16]))
-    log(f"phase 7: bf16={bf16} K3a's last activations summed as K2 sums "
+    log(f"{label}: bf16={bf16} K3a's last activations summed as K2 sums "
         f"them equal K2's features bit for bit: {torch.equal(s, fa)}; "
         f"activations on the other LeakyReLU branch than the plain "
         f"recompute's, per layer, {[int(f.sum()) for f in flip]} of "
@@ -2439,6 +2494,396 @@ def phase16_semantic(dev="cuda"):
                                    + ["--test_num_step", "50"])
     test_opt.random_sample = "no_crop"
     phase16_eval(data, create_dataset(test_opt).get_item(0))
+
+
+# ------------------------------------------------ 17. block3 at full width
+# dev_scripts/myexp_scannet_colmap/scene0000_00.sh differs from
+# scene0113_00_default.sh (TRAIN_FLAGS) in these, besides the scan and name
+B3_TRAIN = {"--shading_feature_mlp_layer3": ["2"], "--test_num_step": ["2"]}
+B3_STEPS = 8
+# the eval frame: test_default.sh's flags with block3, and the point modes
+# of the train script (and of dev_scripts/w_scannet_etf/*_test.sh):
+# test_default.sh leaves them at "0", which builds block3 without the
+# colour and dir inputs, 256 wide against the checkpoint's 263, and fails
+# in both packages
+B3_EVAL = {"--shading_feature_mlp_layer3": ["2"], "--point_conf_mode": ["1"],
+           "--point_dir_mode": ["1"], "--point_color_mode": ["1"]}
+
+
+def block3_checkpoint(expr, agg_cfg):
+    """Phase 3's room-scan checkpoint with the port's seeded weights of
+    agg_cfg (block3 included), written to expr."""
+    from sgnerf_tpu_torch.models.aggregator import init_aggregator_params
+    from sgnerf_tpu_torch.models.checkpoint_io import load_native, save_native
+    from sgnerf_tpu_torch.models.params import params_to_jax
+    tree, meta = load_native(os.path.join(REPO, "build", "smoke",
+                                          "0_net_ray_marching.npz"))
+    tree["params"] = params_to_jax(init_aggregator_params(0, agg_cfg))
+    save_native(os.path.join(expr, "0_net_ray_marching.npz"), tree, meta)
+
+
+def phase17_block3(item):
+    """Phase 17: scene0000_00.sh's aggregator (block3 on colour and dir)
+    at full width: the train step (un-fused: the reference's gate), colour's
+    gradient, train_ft on phase 8's export, and the eval frame with
+    test_default.sh's bf16 cache and gathers (K1, no K2)."""
+    import torch
+    from sgnerf_tpu_torch.models import aggregator as agg_mod
+    from sgnerf_tpu_torch.models.renderer import draw_render_noise
+    from sgnerf_tpu_torch.models.train import loss_and_grads, trained_fields
+    from sgnerf_tpu_torch.options import TestOptions, TrainOptions
+    from sgnerf_tpu_torch.run import train_ft
+    from sgnerf_tpu_torch.runtime.scene_model import SceneModel
+    build = os.path.join(REPO, "build")
+    ck = os.path.join(build, "smoke_b3")
+    flags = with_flags(TRAIN_FLAGS, B3_TRAIN)
+    opt = TrainOptions().parse(flags + ["--name", "b3",
+                                        "--checkpoints_dir", ck])
+    t0 = time.perf_counter()
+    model = SceneModel(opt)
+    block3_checkpoint(model.expr_dir, model.cfg.agg)
+    model.load_checkpoint(model.resolve_resume())
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    agg = cfg.agg
+    path = agg_mod.fused_paths(
+        agg, K=cfg.K, F=agg.point_features_dim, Dd=agg.dist_dim,
+        color_branch=model.params["color_branch"], training=True,
+        device=model.device)
+    log(f"phase 17: block3 train model ({N_POINTS} points, block3 "
+        f"{[tuple(l_['w'].shape) for l_ in model.params['block3']]}) loaded "
+        f"in {time.perf_counter() - t0:.1f} s; the gate's path: {path}")
+    assert agg.fused_mlp == "cuda" and path == "none", (agg.fused_mlp, path)
+
+    batch = train_batch(item, model.device)
+    R = batch["raydir"].shape[1]
+    gen = torch.Generator(device=model.device).manual_seed(11)
+    noise = draw_render_noise(gen, cfg, 1, R)
+    _, _, g_pts = loss_and_grads(model.state, model.grid, cfg, model.tcfg,
+                                 batch, noise=noise)
+    gc = g_pts[trained_fields(model.tcfg).index("color")]
+    gnorm = float(gc.norm())
+    rows = int((gc.abs().sum(-1) > 0).sum())
+    log(f"phase 17: point colour's gradient (--color_grad 1): norm "
+        f"{gnorm:.4e} over {rows} points")
+    assert np.isfinite(gnorm) and gnorm > 0 and rows > 0
+    color0 = model.cloud.color.clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, step_ms = [], []
+    for _ in range(B3_STEPS):
+        t0 = time.perf_counter()
+        out = model.optimize(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out["total"]))
+    launches = read_launches()
+    moved = int((model.cloud.color != color0).any(-1).sum())
+    log(f"phase 17: {B3_STEPS} block3 steps of {R} rays at {N_POINTS} "
+        f"points: losses {[round(v, 6) for v in losses]}, step ms "
+        f"{[round(v, 1) for v in step_ms]}, median "
+        f"{statistics.median(step_ms):.1f} ms, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, colours "
+        f"moved by Adam {moved}, launches {launches}")
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    assert sum(launches.values()) == 0 and moved > 0, launches
+    profile_call("phase 17: profiled block3 step",
+                 lambda: model.optimize(batch))
+    del model, batch, color0, gc, g_pts
+    torch.cuda.empty_cache()
+
+    # train_ft with scene0000_00.sh's flags on phase 8's export
+    expr = os.path.join(ck, "ft")
+    os.makedirs(expr, exist_ok=True)
+    for ext in ("", ".meta.json"):
+        shutil.copy(os.path.join(ck, "b3", "0_net_ray_marching.npz" + ext),
+                    os.path.join(expr, "0_net_ray_marching.npz" + ext))
+    ft_flags = flags + [
+        "--name", "ft", "--checkpoints_dir", ck,
+        "--data_root", os.path.join(build, "smoke_scans") + "/",
+        "--scan", "scene_smoke", "--maximum_step", "10",
+        "--save_iter_freq", "10", "--test_num", "1", "--test_freq", "0",
+        "--print_freq", "5"]
+    reset_launches()
+    tee = Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        train_ft.main(ft_flags)
+    torch.cuda.synchronize()
+    out = tee.buf.getvalue()
+    log(f"phase 17: train_ft (scene0000_00.sh's flags) ran 10 steps, saved, "
+        f"exported and tested in {time.perf_counter() - t0:.1f} s; "
+        f"launches {read_launches()}")
+    for f in ("10_net_ray_marching.npz", "10_net_ray_marching.pth"):
+        assert os.path.exists(os.path.join(expr, f)), f
+    assert "training from step 0 to 10" in out
+    psnr_lines = [l_ for l_ in out.splitlines() if "psnr:" in l_]
+    assert psnr_lines and all(np.isfinite(float(
+        l_.split("psnr:")[1].split()[0])) for l_ in psnr_lines), psnr_lines
+    assert sum(read_launches().values()) == 0, read_launches()
+
+    # the eval frame: test_default.sh's bf16 cache and gathers, block3
+    topt = TestOptions().parse(with_flags(TEST_DEFAULT_FLAGS, dict(
+        B3_EVAL, **{"--name": ["b3"], "--checkpoints_dir": [ck]})))
+    model = SceneModel(topt)
+    model.load_checkpoint(model.resolve_resume())
+    assert model.cfg.knn_mode == "fused"
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    col = model.render_image(item)
+    first_s = time.perf_counter() - t0
+    launches = read_launches()
+    t0 = time.perf_counter()
+    col = model.render_image(item)
+    frame_s = time.perf_counter() - t0
+    chunks = -(-len(item["raydir"]) // 9216)
+    log(f"phase 17: block3 eval frame {W_IMG}x{H_IMG}: first "
+        f"{first_s * 1e3:.1f} ms, warm {frame_s * 1e3:.1f} ms; launches of "
+        f"the first {launches} ({chunks} chunks)")
+    assert launches["fused_knn_select"] == chunks, launches
+    assert sum(launches.values()) == chunks, launches
+    profile_call("phase 17: profiled block3 eval frame",
+                 lambda: model.render_image(item))
+    model.cfg = dataclasses.replace(model.cfg, knn_mode="exact")
+    exact = model.render_image(item)
+    diff = float(np.abs(col - exact).max())
+    log(f"phase 17: block3 frame, K1 vs knn_mode exact: max |diff| "
+        f"{diff:.3e} (tolerance {RENDER_ATOL})")
+    assert np.isfinite(col).all() and diff <= RENDER_ATOL, diff
+    del model
+    torch.cuda.empty_cache()
+
+
+# ----------------------------------- 18. the perspective path at full width
+NERF_W = 800                   # NeRF-synthetic views are 800x800
+NERF_POINTS = 1_000_000
+NERF_STEPS = 8
+# the lego scene's field of view (transforms_*.json camera_angle_x)
+NERF_ANGLE_X = 0.6911112070083618
+
+
+def nerf_flags(root, name, ckpt):
+    """tests/test_cli_blender.py's flags at full width (256 the flag
+    default), K 8, D 400 and 800x800, with --wcoord_query 0; 1024-ray
+    batches (random_sample_size 32, phase 6's) instead of 64."""
+    return [
+        "--scan", "lego", "--dataset_name", "nerf_synth_ft",
+        "--data_root", root, "--checkpoints_dir", ckpt, "--name", name,
+        "--cloud_path", os.path.join(root, "lego", "cloud.pkl"),
+        "--num_point", str(NERF_POINTS),
+        "--img_wh", str(NERF_W), str(NERF_W), "--random_sample", "random",
+        "--random_sample_size", "32",
+        "--which_ray_generation", "near_far_linear",
+        "--which_render_func", "radiance", "--which_blend_func", "alpha",
+        "--which_tonemap_func", "off",
+        "--near_plane", "2.0", "--far_plane", "6.0",
+        "--z_depth_dim", "400", "--SR", "4", "--K", "8", "--P", "10",
+        "--max_o", "40000", "--vsize", "0.02", "0.02", "0.02",
+        "--vscale", "2", "2", "2", "--kernel_size", "3", "3", "3",
+        "--radius_limit_scale", "4", "--agg_dist_pers", "20",
+        "--agg_distance_kernel", "linear", "--agg_intrp_order", "2",
+        "--point_features_dim", "32", "--num_feat_freqs", "3",
+        "--dist_xyz_freq", "5", "--num_viewdir_freqs", "4",
+        "--act_type", "LeakyReLU", "--shading_color_mlp_layer", "4",
+        "--shading_feature_mlp_layer1", "2", "--shading_feature_num", "256",
+        "--act_super", "1",
+        "--color_loss_items", "ray_masked_coarse_raycolor",
+        "ray_miss_coarse_raycolor", "coarse_raycolor",
+        "--color_loss_weights", "1.0", "0.0", "0.0",
+        "--zero_one_loss_items", "conf_coefficient",
+        "--zero_one_loss_weights", "0.0001",
+        "--lr", "0.001", "--plr", "0.002",
+        "--lr_policy", "iter_exponential_decay",
+        "--lr_decay_iters", "1000000", "--raydist_mode_unit", "1",
+        "--bg_color", "white", "--vox_res", "0",
+        "--ranges", "-10", "-10", "-10", "10", "10", "10",
+        "--wcoord_query", "0", "--shpnt_jitter", "uniform",
+        "--n_threads", "0"]
+
+
+def write_nerf_export(root, n_points=NERF_POINTS, seed=9, n_train=4,
+                      n_test=2):
+    """A seeded NeRF-synthetic scene under root/lego: n_points on the
+    surface of a sphere (r 0.7) and a torus (R 1.0, r 0.2) in
+    load_blender_cloud's pickle, and 800x800 RGBA views from a ring at
+    radius 4 and 30 degrees elevation (blender c2w poses, lego's field of
+    view), each the points splatted in, nearest last, alpha 0 elsewhere."""
+    import pickle
+    from PIL import Image
+    lego = os.path.join(root, "lego")
+    rng = np.random.default_rng(seed)
+    n_s = n_points // 2
+    s = rng.normal(size=(n_s, 3))
+    s = 0.7 * s / np.linalg.norm(s, axis=-1, keepdims=True)
+    u, v = rng.uniform(0, 2 * np.pi, (2, n_points - n_s))
+    t = np.stack([(1.0 + 0.2 * np.cos(v)) * np.cos(u),
+                  (1.0 + 0.2 * np.cos(v)) * np.sin(u), 0.2 * np.sin(v)], -1)
+    xyz = np.concatenate([s, t]).astype(np.float32)
+    rgb = np.clip(xyz * 0.4 + 0.5, 0, 1)
+    os.makedirs(lego, exist_ok=True)
+    with open(os.path.join(lego, "cloud.pkl"), "wb") as f:
+        pickle.dump({"point_xyz": xyz}, f)
+    W = NERF_W
+    focal = 0.5 * W / np.tan(0.5 * NERF_ANGLE_X)
+    for split, n, off in (("train", n_train, 0.0), ("test", n_test, 0.5)):
+        os.makedirs(os.path.join(lego, split), exist_ok=True)
+        frames = []
+        for i in range(n):
+            az = 2 * np.pi * (i + off) / n
+            el = np.pi / 6
+            campos = 4.0 * np.array([np.cos(el) * np.cos(az),
+                                     np.cos(el) * np.sin(az), np.sin(el)])
+            back = campos / np.linalg.norm(campos)
+            right = np.cross([0.0, 0.0, 1.0], back)
+            right /= np.linalg.norm(right)
+            up = np.cross(back, right)
+            c2w = np.eye(4)
+            c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = (right, up,
+                                                              back, campos)
+            # the splat in the opencv frame the dataset reads (x right,
+            # y down, z forward)
+            cam = (xyz - campos) @ np.stack([right, -up, -back], -1)
+            z = cam[:, 2]
+            px = np.floor(cam[:, 0] * focal / z + W / 2).astype(np.int64)
+            py = np.floor(cam[:, 1] * focal / z + W / 2).astype(np.int64)
+            ok = (z > 0) & (px >= 0) & (px < W) & (py >= 0) & (py < W)
+            order = np.argsort(-z[ok])                 # far first
+            img = np.zeros((W, W, 4), np.uint8)
+            img[py[ok][order], px[ok][order], :3] = (
+                rgb[ok][order] * 255).astype(np.uint8)
+            img[py[ok][order], px[ok][order], 3] = 255
+            Image.fromarray(img, "RGBA").save(
+                os.path.join(lego, split, f"r_{i}.png"))
+            frames.append({"file_path": f"./{split}/r_{i}",
+                           "transform_matrix": c2w.tolist()})
+        with open(os.path.join(lego, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": NERF_ANGLE_X, "frames": frames}, f)
+
+
+def phase18_perspective():
+    """Phase 18: the perspective-space path (--wcoord_query 0) on a
+    NeRF-synthetic scene at full width: 8 train steps (K2 and K3 each
+    step, held to their plain versions on the path's own chunk), then one
+    800x800 test frame with its frame grid, against the un-fused path."""
+    import torch
+    from sgnerf_tpu_torch.data import create_dataset
+    from sgnerf_tpu_torch.models import aggregator as agg_mod
+    from sgnerf_tpu_torch.ops.query_pers import perspective_grid
+    from sgnerf_tpu_torch.options import TrainOptions
+    from sgnerf_tpu_torch.runtime.scene_model import (SceneModel,
+                                                      batch_to_device)
+    build = os.path.join(REPO, "build")
+    root = os.path.join(build, "smoke_nerf")
+    t0 = time.perf_counter()
+    write_nerf_export(root)
+    export_s = time.perf_counter() - t0
+    opt = TrainOptions().parse(nerf_flags(root, "pers",
+                                          os.path.join(build, "smoke_pers")))
+    opt.split = "train"
+    dataset = create_dataset(opt)
+    t0 = time.perf_counter()
+    model = SceneModel(opt)
+    xyz, feats, labels = dataset.load_init_points()
+    with contextlib.redirect_stdout(io.StringIO()):
+        model.setup_from_points(xyz, feats, labels, dataset=dataset)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cfg = model.cfg
+    assert model.perspective and cfg.agg.fused_mlp == "cuda"
+    rng = np.random.default_rng(4)
+    items = [dataset.get_item(int(rng.integers(0, len(dataset))), rng=rng)
+             for _ in range(NERF_STEPS)]
+    with contextlib.redirect_stdout(io.StringIO()):
+        model.ensure_pspec(items[0])
+    ps = model.pspec
+    log(f"phase 18: NeRF-synthetic export ({len(xyz)} points, "
+        f"{len(dataset)} train views {NERF_W}x{NERF_W}) in {export_s:.1f} s; "
+        f"model set up (world grid {model.spec.vdim}) in {setup_s:.1f} s; "
+        f"frustum grid vdim {ps.vdim} max_o {ps.max_o} P {ps.P}")
+    batches = [batch_to_device(it, model.device) for it in items]
+    captured = {}
+    agg_fn = capture_first_grad(agg_mod, "fused_block1_alpha", captured)
+    torch.cuda.synchronize()
+    reset_launches()
+    losses, step_ms = [], []
+    try:
+        for b in batches:
+            t0 = time.perf_counter()
+            out = model.optimize(b)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(out["total"]))
+    finally:
+        agg_mod.fused_block1_alpha = agg_fn
+    launches = read_launches()
+    R = batches[0]["raydir"].shape[1]
+    log(f"phase 18: {NERF_STEPS} perspective steps of {R} rays: losses "
+        f"{[round(v, 6) for v in losses]}, step ms "
+        f"{[round(v, 1) for v in step_ms]}, median "
+        f"{statistics.median(step_ms):.1f} ms, launches {launches}")
+    assert np.isfinite(losses).all()
+    assert launches == {"fused_knn_select": 0,
+                        "fused_block1_alpha": NERF_STEPS,
+                        "fused_block1_alpha_bwd": NERF_STEPS,
+                        "fused_block1_alpha_color": 0,
+                        "fused_block1_alpha_color_march": 0,
+                        "fused_knn_select_tiled": 0, **NO_GATHER}, launches
+    profile_call("phase 18: profiled perspective step",
+                 lambda: model.optimize(batches[0]))
+    hold_k2(captured["args"], captured["kw"], "phase 18")
+    res = hold_k3(captured, "phase 18")
+    for bf16, (_, _, _, rel) in res.items():
+        assert max(rel) <= K3_TOL[bf16], (bf16, rel)
+    del captured, batches
+
+    # one test frame: its perspective grid, then the render
+    topt = TrainOptions().parse(nerf_flags(root, "pers",
+                                           os.path.join(build, "smoke_pers")))
+    topt.split, topt.random_sample = "test", "no_crop"
+    item = create_dataset(topt).get_item(0)
+    cam = [torch.as_tensor(np.asarray(item[k], np.float32),
+                           device=model.device)
+           for k in ("camrotc2w", "campos")]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid = perspective_grid(model.cloud.xyz, model.cloud.active, *cam,
+                            model.pspec)[0]
+    torch.cuda.synchronize()
+    grid_ms = (time.perf_counter() - t0) * 1e3
+    n_occ = int((grid.vox_slot >= 0).sum())
+    del grid
+    reset_launches()
+    t0 = time.perf_counter()
+    col = model.render_image(item)
+    frame_s = time.perf_counter() - t0
+    launches = read_launches()
+    t0 = time.perf_counter()
+    col = model.render_image(item)
+    warm_s = time.perf_counter() - t0
+    n_rays = len(item["raydir"])
+    chunks = -(-n_rays // 9216)
+    hit = float(np.mean(np.any(col != 1.0, axis=-1)))
+    log(f"phase 18: frame grid of {int(model.cloud.n_active)} points "
+        f"{grid_ms:.1f} ms ({n_occ} occupied voxels); test frame "
+        f"{NERF_W}x{NERF_W} first {frame_s * 1e3:.1f} ms, warm "
+        f"{warm_s * 1e3:.1f} ms ({n_rays / warm_s:.0f} rays/s), rays off "
+        f"the background {hit:.3f}, launches of the first {launches}")
+    assert launches["fused_block1_alpha"] == chunks, launches
+    assert sum(launches.values()) == chunks, launches
+    assert col.shape == (n_rays, 3) and np.isfinite(col).all() and hit > 0.05
+    profile_call("phase 18: profiled perspective test frame",
+                 lambda: model.render_image(item))
+    model.cfg = dataclasses.replace(model.cfg, agg=dataclasses.replace(
+        model.cfg.agg, fused_mlp="none"))
+    plain = model.render_image(item)
+    diff = float(np.abs(col - plain).max())
+    log(f"phase 18: test frame, kernel path vs un-fused path: max |diff| "
+        f"{diff:.3e} (tolerance {RENDER_ATOL})")
+    assert diff <= RENDER_ATOL, diff
+    del model
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -10,7 +10,11 @@ Training (`is_train=True`) jitters the sample depths with uniforms drawn
 by `draw_render_noise` (or passed in as `noise`, so tests can feed the
 noise JAX drew); with `semantic_guidance` and a per-ray `pixel_label` the
 query is guided by the points' BPNet labels (ops/query.py, with the
-noise's `guide_u`). Training rebuilds the attribute table from the
+noise's `guide_u`). `render_rays_perspective` is Point-NeRF's
+perspective-space path (`--wcoord_query 0`): the query runs on a grid of
+the frame's perspective coords (ops/query_pers.py), with the train-time
+shading-point jitter in that space; shading is the world path's.
+Training rebuilds the attribute table from the
 cloud's live tensors each call: the gather's transpose is a scatter-add (`index_add_`)
 into that table (the JAX package's `gather_vjp="scatter"`), or with
 `gather_vjp="sorted"` a sort and segment sum in float32 (`gather_rows`).
@@ -33,20 +37,21 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..ops.camera import w2pers
+from ..ops.camera import pers2w, w2pers
 from ..ops.grid import PointGrid
 from ..ops.pallas_gather import sorted_segment_sum
 from ..ops.march import (BLEND_FUNCS, RENDER_FUNCS, TONE_MAPS, ray_march,
                          ray_dist_from_z)
 from ..ops.query import query_neighbors
-from ..ops.raygen import near_far_linear_ray_generation
+from ..ops.query_pers import perspective_grid, query_perspective_grid
+from ..ops.raygen import LAZY_RAYGENS, find_ray_generation_method
 from .aggregator import AggregatorConfig, aggregate
 from .point_cloud import NeuralPointCloud
 
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """Static render/query configuration of the eval slice (the reference
+    """Static render/query configuration (the reference
     RenderConfig's fields that the eval render reads, same defaults)."""
     agg: AggregatorConfig = AggregatorConfig()
     z_depth_dim: int = 400           # raw samples per ray (D)
@@ -54,6 +59,7 @@ class RenderConfig:
     K: int = 8                       # neighbours per shading point
     vsize: Tuple[float, float, float] = (0.008, 0.008, 0.008)
     radius_limit_scale: float = 4.0
+    which_ray_generation: str = "near_far_linear"
     which_render_func: str = "radiance"
     which_blend_func: str = "alpha"
     which_tonemap_func: str = "off"
@@ -71,6 +77,10 @@ class RenderConfig:
     #                                  sem_embedding joins the attribute
     #                                  table (block2_bpnet's input)
     jitter: float = 0.3              # train-time sample jitter fraction
+    domain_size: float = 1.0         # the cube generator's half extent
+    shpnt_jitter: str = "passfunc"   # perspective path, train time: the
+    #                                  shading points' depth jitter,
+    #                                  "uniform" | "gaussian" | off
 
     @property
     def radius_limit(self) -> float:
@@ -91,21 +101,33 @@ def attribute_table(cloud: NeuralPointCloud, gather_dtype: str,
 def draw_render_noise(generator: torch.Generator, cfg: RenderConfig, B: int,
                       R: int, is_train: bool = True,
                       grid: Optional[PointGrid] = None,
-                      guidance: bool = False) -> Dict[str, torch.Tensor]:
+                      guidance: bool = False,
+                      perspective: bool = False) -> Dict[str, torch.Tensor]:
     """Every random tensor the render forward draws, from `generator` (on
     its device): raygen_u (B,R,D) sample-depth jitter uniforms when
-    training with jitter > 0; with `guidance`, guide_u, the semantic
-    acceptance uniforms of the candidates' shape: (B,R,SR,C) on the cache
-    path, (B,R,SR,k^3,P) on the bucket path. Counterpart of the JAX
-    draw_render_noise for the world-coordinate path; the numbers differ
-    from JAX's (the generators differ), so parity tests pass JAX's noise
-    in."""
+    training with jitter > 0 (in [-1, 1) for the cube generator); on the
+    perspective path, shade_u (B,R,SR), the shading points' depth jitter
+    (uniform or normal, as cfg.shpnt_jitter says), when training; else with
+    `guidance`, guide_u, the semantic acceptance uniforms of the
+    candidates' shape: (B,R,SR,C) on the cache path, (B,R,SR,k^3,P) on the
+    bucket path. Counterpart of the JAX draw_render_noise; the numbers
+    differ from JAX's (the generators differ), so parity tests pass JAX's
+    noise in."""
     noise: Dict[str, torch.Tensor] = {}
     dev = generator.device
     if is_train and cfg.jitter > 0:
-        noise["raygen_u"] = torch.rand((B, R, cfg.z_depth_dim),
-                                       generator=generator, device=dev)
-    if guidance:
+        u = torch.rand((B, R, cfg.z_depth_dim), generator=generator,
+                       device=dev)
+        noise["raygen_u"] = (u * 2 - 1 if cfg.which_ray_generation == "cube"
+                             else u)
+    if perspective:
+        if is_train and cfg.shpnt_jitter == "uniform":
+            noise["shade_u"] = torch.rand((B, R, cfg.SR),
+                                          generator=generator, device=dev)
+        elif is_train and cfg.shpnt_jitter == "gaussian":
+            noise["shade_u"] = torch.randn((B, R, cfg.SR),
+                                           generator=generator, device=dev)
+    elif guidance:
         spec = grid.spec
         if spec.nbr_cache > 0 and grid.nbr_packed.shape[0] > 0:
             shape = (B, R, cfg.SR, spec.nbr_cache)
@@ -114,6 +136,17 @@ def draw_render_noise(generator: torch.Generator, cfg: RenderConfig, B: int,
             shape = (B, R, cfg.SR, ks[0] * ks[1] * ks[2], spec.P)
         noise["guide_u"] = torch.rand(shape, generator=generator, device=dev)
     return noise
+
+
+def _ray_samples(cfg: RenderConfig, campos, raydir, near, far, noise,
+                 is_train):
+    """cfg's ray generator -> (raypos (B,R,D,3), ts (B,R,D))."""
+    raygen = find_ray_generation_method(cfg.which_ray_generation)
+    raypos, _, _, ts = raygen(
+        campos, raydir, cfg.z_depth_dim, near=near, far=far,
+        jitter=cfg.jitter if is_train else 0.0, u=noise.get("raygen_u"),
+        domain_size=cfg.domain_size)
+    return raypos, ts
 
 
 class _GatherRows(torch.autograd.Function):
@@ -194,15 +227,19 @@ def render_rays(params: Dict, cloud: NeuralPointCloud, grid: PointGrid,
         noise = draw_render_noise(generator, cfg, B, R, is_train=is_train,
                                   grid=grid, guidance=use_sem)
     noise = noise or {}
-    raypos, _, _, ray_ts = near_far_linear_ray_generation(
-        campos, raydir, cfg.z_depth_dim, near=near, far=far,
-        jitter=cfg.jitter if is_train else 0.0, u=noise.get("raygen_u"))
+    raypos, ray_ts = _ray_samples(cfg, campos, raydir, near, far, noise,
+                                  is_train)
     # with the two-level compaction on, positions are recomputed from
-    # (campos, dir, t) for the selected samples only
+    # (campos, dir, t) for the selected samples only, where the generator's
+    # positions are campos + t * dir
+    lazy = cfg.which_ray_generation in LAZY_RAYGENS
     q = query_neighbors(grid, raypos, K=cfg.K,
                         SR=cfg.SR, radius_limit=cfg.radius_limit,
-                        knn_mode=cfg.knn_mode, campos=campos, raydir=raydir,
-                        tvals=ray_ts, dedup_tile=cfg.dedup_tile,
+                        knn_mode=cfg.knn_mode,
+                        campos=campos if lazy else None,
+                        raydir=raydir if lazy else None,
+                        tvals=ray_ts if lazy else None,
+                        dedup_tile=cfg.dedup_tile,
                         dedup_cap=cfg.dedup_cap,
                         ray_label=pixel_label if use_sem else None,
                         points_label=cloud.label if use_sem else None,
@@ -215,6 +252,63 @@ def render_rays(params: Dict, cloud: NeuralPointCloud, grid: PointGrid,
     return _shade_and_march(params, cloud, cfg, table, q.sample_pidx,
                             q.sample_loc_w, q.ray_mask, campos, raydir,
                             camrotc2w, bg_color, is_train, prob)
+
+
+def render_rays_perspective(params: Dict, cloud: NeuralPointCloud, pspec,
+                            cfg: RenderConfig, *, campos: torch.Tensor,
+                            raydir: torch.Tensor, camrotc2w: torch.Tensor,
+                            near, far,
+                            bg_color: Optional[torch.Tensor] = None,
+                            table: Optional[torch.Tensor] = None,
+                            noise: Optional[Dict[str, torch.Tensor]] = None,
+                            generator: Optional[torch.Generator] = None,
+                            is_train: bool = False,
+                            pgrid=None) -> Dict[str, torch.Tensor]:
+    """Point-NeRF's perspective-space path (--wcoord_query 0, reference
+    query_point_indices.py): the frame's grid is built in camera 0's
+    perspective space on the static frustum spec `pspec`
+    (ops/query_pers.py; `pgrid`, when given, is that grid, built once for
+    the frame's chunks), then shading and march run as in render_rays.
+    Training jitters the shading points' depth in that space by the
+    noise's `shade_u` (reference query_point_indices.py:96: uniform within
+    +-vsize_z/2; gaussian, std vsize_z/4 clipped to +-vsize_z/2)."""
+    B, R, _ = raydir.shape
+    if is_train and cfg.gather_dtype != "float32":
+        raise NotImplementedError(
+            f"training through --gather_dtype {cfg.gather_dtype} is not "
+            "ported yet (ROADMAP.md, queue 1 item 17); train with float32")
+    if noise is None and generator is not None:
+        noise = draw_render_noise(generator, cfg, B, R, is_train=is_train,
+                                  perspective=True)
+    noise = noise or {}
+    raypos, _ = _ray_samples(cfg, campos, raydir, near, far, noise, is_train)
+    if pgrid is None:
+        pgrid, _ = perspective_grid(cloud.xyz, cloud.active, camrotc2w[0],
+                                    campos[0], pspec)
+    res = query_perspective_grid(pgrid, raypos, camrotc2w[0], campos[0],
+                                 K=cfg.K, SR=cfg.SR,
+                                 radius_limit=cfg.radius_limit)
+    loc_p = res.sample_loc_w              # perspective shading coords
+    shade_u = noise.get("shade_u")
+    if is_train and shade_u is not None and cfg.shpnt_jitter in (
+            "uniform", "gaussian"):
+        vz = pspec.vsize[2]
+        j = ((shade_u - 0.5) * vz if cfg.shpnt_jitter == "uniform"
+             else torch.clamp(shade_u * (vz / 4), -vz / 2, vz / 2))
+        j = torch.where(res.sample_loc_mask, j, torch.zeros_like(j))
+        loc_p = torch.cat([loc_p[..., :2], loc_p[..., 2:] + j[..., None]],
+                          dim=-1)
+    # lifted back to world coords for the shared shading path
+    loc_w = pers2w(loc_p.reshape(-1, 3), camrotc2w[0],
+                   campos[0]).reshape(loc_p.shape)
+    loc_w = torch.where(res.sample_loc_mask[..., None], loc_w,
+                        torch.zeros_like(loc_w))
+    if table is None or is_train:
+        table = attribute_table(cloud, cfg.gather_dtype,
+                                bool(cfg.semantic_guidance))
+    return _shade_and_march(params, cloud, cfg, table, res.sample_pidx,
+                            loc_w, res.ray_mask, campos, raydir, camrotc2w,
+                            bg_color, is_train)
 
 
 def gather_and_aggregate(params, cloud, cfg: RenderConfig, table, sample_pidx,
@@ -235,6 +329,8 @@ def gather_and_aggregate(params, cloud, cfg: RenderConfig, table, sample_pidx,
     # zero the padding gathers so masked rows stay finite
     sampled_xyz = g[..., 0:3] * mask[..., None]
     sampled_embedding = g[..., 3:3 + F] * mask[..., None]
+    sampled_color = g[..., 3 + F:6 + F]
+    sampled_dir = g[..., 6 + F:9 + F]
     sampled_conf = g[..., 9 + F:10 + F]
     sampled_sem = g[..., 10 + F:] if cfg.semantic_guidance else None
 
@@ -255,6 +351,8 @@ def gather_and_aggregate(params, cloud, cfg: RenderConfig, table, sample_pidx,
         sampled_embedding=sampled_embedding,
         sampled_conf=sampled_conf,
         sampled_label_embedding=sampled_sem,
+        sampled_color=sampled_color,
+        sampled_dir=sampled_dir,
         sampled_xyz=sampled_xyz,
         sampled_xyz_pers=pers,
         sample_pnt_mask=mask,
@@ -263,7 +361,7 @@ def gather_and_aggregate(params, cloud, cfg: RenderConfig, table, sample_pidx,
         sample_ray_dirs=raydir[:, :, None, :].expand(B, R, cfg.SR, 3),
         Rw2c=cloud.Rw2c, vsize=cfg.vsize, march=march)
     sampled = {"xyz": sampled_xyz, "embedding": sampled_embedding,
-               "color": g[..., 3 + F:6 + F], "dir": g[..., 6 + F:9 + F],
+               "color": sampled_color, "dir": sampled_dir,
                "conf": sampled_conf}
     return decoded, ray_valid, weight, conf_coefficient, sample_loc, sampled
 

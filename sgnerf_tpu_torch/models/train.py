@@ -32,7 +32,7 @@ import torch
 
 from .losses import compute_losses
 from .point_cloud import NeuralPointCloud
-from .renderer import RenderConfig, render_rays
+from .renderer import RenderConfig, render_rays, render_rays_perspective
 
 POINT_FIELDS = ("embedding", "conf", "color", "dir", "xyz")
 
@@ -158,11 +158,12 @@ def _phase_scales(tcfg: TrainConfig, step: int) -> Tuple[float, float]:
 def loss_and_grads(state: TrainState, grid, cfg: RenderConfig,
                    tcfg: TrainConfig, batch: Dict[str, torch.Tensor],
                    noise: Optional[Dict[str, torch.Tensor]] = None,
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None, pspec=None):
     """Forward, losses and backward of one step, without the update.
     Returns (losses, param grads, point grads) in the orders of
     param_leaves and trained_fields; a field the loss does not reach gets
-    zeros."""
+    zeros. With `pspec` (a frustum GridSpec) the forward is the
+    perspective-space path and `grid` goes unused."""
     params, cloud = state.params, state.cloud
     leaves = param_leaves(params)
     fields = trained_fields(tcfg)
@@ -170,13 +171,17 @@ def loss_and_grads(state: TrainState, grid, cfg: RenderConfig,
     for t in leaves + pts:
         t.requires_grad_(True)
     try:
-        out = render_rays(
-            params, cloud, grid, cfg, campos=batch["campos"],
-            raydir=batch["raydir"], camrotc2w=batch["camrotc2w"],
-            near=batch["near"], far=batch["far"],
-            bg_color=batch.get("bg_color"),
-            pixel_label=batch.get("pixel_label"), noise=noise,
-            generator=generator, is_train=True)
+        cam = dict(campos=batch["campos"], raydir=batch["raydir"],
+                   camrotc2w=batch["camrotc2w"], near=batch["near"],
+                   far=batch["far"], bg_color=batch.get("bg_color"),
+                   noise=noise, generator=generator, is_train=True)
+        if pspec is not None:
+            # --wcoord_query 0: no semantic guidance, as the reference
+            # added it to the world-coordinate querier only
+            out = render_rays_perspective(params, cloud, pspec, cfg, **cam)
+        else:
+            out = render_rays(params, cloud, grid, cfg,
+                              pixel_label=batch.get("pixel_label"), **cam)
         if "ray_depth_mask" in batch:
             out["ray_depth_mask"] = batch["ray_depth_mask"]
         total, losses = compute_losses(
@@ -207,16 +212,18 @@ def loss_and_grads(state: TrainState, grid, cfg: RenderConfig,
 def train_step(state: TrainState, grid, cfg: RenderConfig, tcfg: TrainConfig,
                batch: Dict[str, torch.Tensor],
                noise: Optional[Dict[str, torch.Tensor]] = None,
-               generator: Optional[torch.Generator] = None
+               generator: Optional[torch.Generator] = None, pspec=None
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One optimization step, in place. batch: campos (B,3), raydir (B,R,3),
     camrotc2w (B,3,3), gt_image (B,R,3), near/far, bg_color (3,), optional
     gt_depth/gt_mask/ray_depth_mask (B,R) and pixel_label (B,R) int (the
     semantic-guided query's ray labels). The render noise comes from
-    `noise` (render_rays' argument) or is drawn from `generator`. Returns
+    `noise` (render_rays' argument) or is drawn from `generator`; `pspec`
+    routes the forward through the perspective-space path. Returns
     (state, losses): detached 0-d tensors, not synchronised."""
     losses, g_net, g_pts = loss_and_grads(state, grid, cfg, tcfg, batch,
-                                          noise=noise, generator=generator)
+                                          noise=noise, generator=generator,
+                                          pspec=pspec)
     net_scale, pts_scale = _phase_scales(tcfg, state.step)
     adam_step(param_leaves(state.params), g_net, state.opt_net,
               schedule(tcfg, tcfg.lr, state.opt_net["count"]), net_scale)
@@ -233,13 +240,15 @@ def train_step(state: TrainState, grid, cfg: RenderConfig, tcfg: TrainConfig,
 def train_step_multi(state: TrainState, grid, cfg: RenderConfig,
                      tcfg: TrainConfig, batches: List[Dict[str, torch.Tensor]],
                      noises: Optional[List[Dict[str, torch.Tensor]]] = None,
-                     generator: Optional[torch.Generator] = None):
+                     generator: Optional[torch.Generator] = None,
+                     pspec=None):
     """G sequential train_steps (the JAX package scans them in one
     dispatch; here they are plain calls). Returns (state, [losses] * G)."""
     out = []
     for i, batch in enumerate(batches):
         state, losses = train_step(
             state, grid, cfg, tcfg, batch,
-            noise=None if noises is None else noises[i], generator=generator)
+            noise=None if noises is None else noises[i], generator=generator,
+            pspec=pspec)
         out.append(losses)
     return state, out

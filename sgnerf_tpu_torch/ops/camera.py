@@ -1,4 +1,4 @@
-"""Camera math: world -> perspective coords and per-pixel ray directions.
+"""Camera math: world <-> perspective coords and per-pixel ray directions.
 
 PyTorch counterpart of `sgnerf_tpu/ops/camera.py` (reference
 neural_points.py:838-850 and data_utils.py:55-69).
@@ -19,6 +19,15 @@ def w2pers(point_xyz_w: torch.Tensor, camrotc2w: torch.Tensor,
     return torch.stack([xyz_c[..., 0] / zs, xyz_c[..., 1] / zs, z], dim=-1)
 
 
+def pers2w(point_xyz_pers: torch.Tensor, camrotc2w: torch.Tensor,
+           campos: torch.Tensor) -> torch.Tensor:
+    """Inverse of `w2pers`: (..., 3) [x/z, y/z, z] -> world points."""
+    z = point_xyz_pers[..., 2]
+    xyz_c = torch.stack([point_xyz_pers[..., 0] * z,
+                         point_xyz_pers[..., 1] * z, z], dim=-1)
+    return xyz_c @ camrotc2w.T + campos
+
+
 def get_dtu_raydir(pixelcoords: torch.Tensor, intrinsic: torch.Tensor,
                    rot: torch.Tensor, dir_norm: bool = True) -> torch.Tensor:
     """(..., 2) pixel (x, y) -> (..., 3) world ray directions for a
@@ -29,3 +38,4 @@ def get_dtu_raydir(pixelcoords: torch.Tensor, intrinsic: torch.Tensor,
     if dir_norm:
         dirs = dirs / (torch.linalg.norm(dirs, dim=-1, keepdim=True) + 1e-5)
     return dirs
+

@@ -255,12 +255,12 @@ def _unsupported(flag: str, item: str):
 
 
 def _check_slice(opt):
-    if (int(opt.shading_feature_mlp_layer2) or int(opt.shading_feature_mlp_layer3)
-            or getattr(opt, "which_agg_model", "viewmlp") != "viewmlp"):
-        _unsupported("--shading_feature_mlp_layer2/3 and viewmlp_yuze",
-                     "item 15")
-    if int(getattr(opt, "wcoord_query", 1)) == 0:
-        _unsupported("--wcoord_query 0", "item 12")
+    """Refuse the flags of modules the port does not have yet (both CLIs
+    call it at startup; configs_from_opt too)."""
+    if str(getattr(opt, "bgmodel", "no")).endswith("plane"):
+        _unsupported("--bgmodel plane", "item 13")
+    if getattr(opt, "dataset_name", None) in ("dtu", "dtu_ft"):
+        _unsupported(f"--dataset_name {opt.dataset_name}", "item 13")
     if int(getattr(opt, "scene_shards", 0) or 0) > 1:
         _unsupported("--scene_shards", "item 19")
     if int(getattr(opt, "ray_shards", 0) or 0) not in (0, 1):
@@ -273,17 +273,6 @@ def _check_slice(opt):
         _unsupported(f"--gather_vjp {opt.gather_vjp}", "item 17")
     if getattr(opt, "gather_round", "nearest") != "nearest":
         _unsupported(f"--gather_round {opt.gather_round}", "item 17")
-    if opt.which_ray_generation != "near_far_linear":
-        _unsupported(f"--which_ray_generation {opt.which_ray_generation}",
-                     "item 12")
-    if opt.agg_distance_kernel != "linear":
-        _unsupported(f"--agg_distance_kernel {opt.agg_distance_kernel}",
-                     "item 15")
-    if int(opt.agg_intrp_order) != 2:
-        _unsupported(f"--agg_intrp_order {opt.agg_intrp_order}", "item 15")
-    aw = opt.agg_axis_weight
-    if aw is not None and tuple(float(a) for a in aw) != (1.0, 1.0, 1.0):
-        _unsupported("non-unit --agg_axis_weight", "item 15")
     for xyz_flag in ("agg_feat_xyz_mode", "agg_alpha_xyz_mode",
                      "agg_color_xyz_mode"):
         if str(getattr(opt, xyz_flag, "None")) != "None":
@@ -337,6 +326,11 @@ def configs_from_opt(opt, device=None):
                   "batchdedup"):
         raise ValueError("--gather_vjp must be scatter/sorted/f32/spread/"
                          f"raydedup/batchdedup, got {gv!r}")
+    wam = getattr(opt, "which_agg_model", "viewmlp")
+    if wam not in ("viewmlp", "viewmlp_yuze"):
+        raise ValueError(
+            f"--which_agg_model must be viewmlp or viewmlp_yuze, got {wam!r}")
+    agg_variant = "yuze" if wam == "viewmlp_yuze" else "default"
     _check_slice(opt)
 
     cuda = torch.device(device if device is not None
@@ -356,7 +350,16 @@ def configs_from_opt(opt, device=None):
         point_features_dim=opt.point_features_dim,
         shading_feature_num=opt.shading_feature_num,
         shading_feature_mlp_layer1=opt.shading_feature_mlp_layer1,
+        shading_feature_mlp_layer2=opt.shading_feature_mlp_layer2,
         shading_feature_mlp_layer2_bpnet=opt.shading_feature_mlp_layer2_bpnet,
+        shading_feature_mlp_layer3=opt.shading_feature_mlp_layer3,
+        # block4 and block_linear live in the yuze variant only (the flag
+        # defaults layer4 1, linear 0 must not reach the default variant)
+        shading_feature_mlp_layer4=(opt.shading_feature_mlp_layer4
+                                    if agg_variant == "yuze" else 0),
+        shading_feature_mlp_linear=(opt.shading_feature_mlp_linear
+                                    if agg_variant == "yuze" else 0),
+        agg_variant=agg_variant,
         predict_semantic=opt.predict_semantic,
         shading_alpha_mlp_layer=opt.shading_alpha_mlp_layer,
         shading_color_mlp_layer=opt.shading_color_mlp_layer,
@@ -365,9 +368,15 @@ def configs_from_opt(opt, device=None):
         dist_xyz_deno=opt.dist_xyz_deno,
         num_viewdir_freqs=opt.num_viewdir_freqs,
         agg_dist_pers=opt.agg_dist_pers,
+        agg_distance_kernel=opt.agg_distance_kernel,
+        agg_intrp_order=opt.agg_intrp_order,
         agg_weight_norm=opt.agg_weight_norm,
         act_type=opt.act_type,
         act_super=opt.act_super,
+        point_color_mode=str(opt.point_color_mode),
+        point_dir_mode=str(opt.point_dir_mode),
+        axis_weight=(tuple(opt.agg_axis_weight)
+                     if opt.agg_axis_weight is not None else None),
         compute_dtype=opt.compute_dtype,
         fused_mlp=fused_mlp,
         fused_bwd=fused_bwd,
@@ -382,6 +391,7 @@ def configs_from_opt(opt, device=None):
         SR=opt.SR, K=opt.K,
         vsize=tuple(opt.vsize),
         radius_limit_scale=opt.radius_limit_scale,
+        which_ray_generation=opt.which_ray_generation,
         which_render_func=opt.which_render_func,
         which_blend_func=opt.which_blend_func,
         which_tonemap_func=opt.which_tonemap_func,
@@ -390,6 +400,8 @@ def configs_from_opt(opt, device=None):
         gather_vjp=gv,
         knn_mode=knn,
         semantic_guidance=opt.semantic_guidance,
+        domain_size=float(opt.domain_size),
+        shpnt_jitter=opt.shpnt_jitter,
         # the reference emits depth when compute_depth OR any depth loss is
         # requested (neural_points_volumetric_model.py:211)
         compute_depth=int(bool(opt.compute_depth)

@@ -16,7 +16,7 @@ import time
 import numpy as np
 
 from ..data import create_dataset
-from ..options.options import TestOptions
+from ..options.options import TestOptions, _check_slice
 from ..runtime.scene_model import SceneModel
 from ..utils.metrics import psnr
 from ..utils.visualizer import Visualizer
@@ -27,9 +27,7 @@ def main(args=None):
     opt = TestOptions().parse(args)
     opt.split = "train" if opt.test_train else "test"
     opt.random_sample = "no_crop"
-    if str(getattr(opt, "bgmodel", "no")).endswith("plane"):
-        raise NotImplementedError(
-            "--bgmodel plane is not ported yet (ROADMAP.md, queue 1 item 13)")
+    _check_slice(opt)          # refuse unported flags before any work
     visualizer = Visualizer(opt)
     dataset = create_dataset(opt)
     model = SceneModel(opt)

@@ -84,9 +84,6 @@ class ItemPrefetcher:
 def check_flags(opt):
     """Refuse, before any work, what this driver does not port yet."""
     _check_slice(opt)
-    if str(getattr(opt, "bgmodel", "no")).endswith("plane"):
-        raise NotImplementedError(
-            "--bgmodel plane is not ported yet (ROADMAP.md, queue 1 item 13)")
     if opt.gather_dtype != "float32":
         raise NotImplementedError(
             f"training through --gather_dtype {opt.gather_dtype} is not "
@@ -190,6 +187,7 @@ def main(args=None):
                 profiler = torch.profiler.profile(activities=acts)
                 profiler.start()
             items = [get_item() for _ in range(G)]
+            model.ensure_pspec(items[0])     # --wcoord_query 0's frustum
             if semantic is not None:
                 semantic.maybe_refresh(model, items[0], steps=G)
                 for it in items:

@@ -9,13 +9,21 @@ prune and grow with grid rebuild (growing's probes: runtime/growing.py),
 checkpoint save and `.pth` export, and the chunked full-frame render. The
 sharded paths come with later slices.
 
+`--wcoord_query 0` (the flag's default) is Point-NeRF's perspective-space
+query: the train step and the render build each frame's grid in camera
+perspective space on a static frustum spec, made once from the first
+item's intrinsics (`ensure_pspec`). The world grid is built all the same:
+growing's probes query it, as in the JAX package.
+
 The device is `device` when given, else `--gpu_ids` (options.py
 `device_from_opt`); nothing probes the machine, so a CUDA run on a machine
 without a card fails at its first allocation.
 """
 from __future__ import annotations
 
+import dataclasses
 import glob
+import math
 import os
 import re
 from typing import Dict, List, Optional
@@ -36,9 +44,11 @@ from ..models.point_cloud import (NeuralPointCloud, build_grid,
                                   grid_spec_for_cloud, grow as grow_cloud,
                                   make_point_cloud, prune as prune_cloud,
                                   set_bpnet_feats)
-from ..models.renderer import attribute_table, render_rays
+from ..models.renderer import (attribute_table, render_rays,
+                               render_rays_perspective)
 from ..models.train import (TrainState, adam_init, create_train_state,
                             train_step, train_step_multi, trained_fields)
+from ..ops.query_pers import perspective_grid, perspective_spec_from_camera
 from ..options.options import configs_from_opt, device_from_opt
 from .native import nearest_view, vox_downsample_closest
 
@@ -85,6 +95,12 @@ class SceneModel:
         self.best_psnr = 0.0
         self.best_iter = 0
         self.generator = None       # render noise of the train step
+        self.perspective = int(getattr(opt, "wcoord_query", 1)) == 0
+        self.pspec = None           # the frustum spec, built by ensure_pspec
+        if self.perspective:
+            print("[scene_model] wcoord_query=0: per-frame perspective-space "
+                  "querier (reference query_point_indices.py); growing "
+                  "probes still use the world grid")
 
     @property
     def params(self):
@@ -262,6 +278,34 @@ class SceneModel:
         self._finish_setup(None, cloud)
         print(f"scene set up with {n} points (capacity {cloud.capacity})")
 
+    # ------------------------------------------------------- perspective query
+
+    def ensure_pspec(self, item: Dict):
+        """In perspective mode, build the static frustum GridSpec once, from
+        the item's camera (the reference derives the same bounds each frame,
+        get_hyperparameters in query_point_indices.py); a no-op otherwise.
+        max_o 0 or unset: every occupied frustum voxel can hold a point."""
+        if not self.perspective or self.pspec is not None:
+            return
+        opt = self.opt
+        W, H = int(opt.img_wh[0]), int(opt.img_wh[1])
+        n_act = (int(self.cloud.n_active) if self.state is not None
+                 else 1_000_000)
+        intr = np.asarray(item["intrinsic"], np.float32)[:3, :3]
+        max_o = int(opt.max_o) if opt.max_o else 0
+        P = int(opt.P) if opt.P else 16
+        spec = perspective_spec_from_camera(
+            intr, W, H, float(item["near"]), float(item["far"]),
+            self.grid_kwargs["vsize"], self.grid_kwargs["vscale"],
+            self.grid_kwargs["kernel_size"], max_o or 1, P)
+        if not max_o:
+            n_vox = math.prod(spec.vdim)
+            spec = dataclasses.replace(
+                spec, max_o=int(max(1024, min(n_vox, n_act))))
+        self.pspec = spec
+        print(f"[scene_model] perspective frustum grid: vdim={spec.vdim} "
+              f"max_o={spec.max_o} P={spec.P}")
+
     # ---------------------------------------------------------------- training
 
     def _generator(self) -> torch.Generator:
@@ -270,13 +314,20 @@ class SceneModel:
             self.generator.manual_seed(0)
         return self.generator
 
+    def _pspec_for_step(self):
+        if self.perspective and self.pspec is None:
+            raise RuntimeError("perspective mode (--wcoord_query 0): call "
+                               "ensure_pspec(item) before optimize()")
+        return self.pspec
+
     def optimize(self, batch: Dict) -> Dict[str, torch.Tensor]:
         """One train step on a batch (batch_to_device), its render noise
         drawn from the model's generator. Returns the losses as device
-        scalars (not synchronised)."""
+        scalars (not synchronised). In perspective mode, ensure_pspec must
+        have run."""
         self.state, losses = train_step(
             self.state, self.grid, self.cfg, self.tcfg, batch,
-            generator=self._generator())
+            generator=self._generator(), pspec=self._pspec_for_step())
         self._table = None
         return losses
 
@@ -284,7 +335,7 @@ class SceneModel:
         """G train steps in a row; returns the per-step loss dicts."""
         self.state, losses = train_step_multi(
             self.state, self.grid, self.cfg, self.tcfg, batches,
-            generator=self._generator())
+            generator=self._generator(), pspec=self._pspec_for_step())
         self._table = None
         return losses
 
@@ -356,6 +407,7 @@ class SceneModel:
         The reference's attr_dedup overflow re-render has nothing to do
         here: the plain attribute gather has no distinct-id cap."""
         dev = self.device
+        self.ensure_pspec(item)
         raydir = torch.as_tensor(np.asarray(item["raydir"], np.float32),
                                  device=dev)
         R = raydir.shape[0]
@@ -371,11 +423,20 @@ class SceneModel:
         near, far = float(item["near"]), float(item["far"])
         table = self.table
         cols = []
+        cam = dict(campos=campos, camrotc2w=rot, near=near, far=far,
+                   bg_color=bg, table=table)
+        if self.perspective:
+            # the frame's perspective grid, once for all its chunks
+            cam["pgrid"] = perspective_grid(self.cloud.xyz, self.cloud.active,
+                                            rot[0], campos[0], self.pspec)[0]
         for s in range(0, raydir.shape[0], chunk_rays):
-            out = render_rays(self.params, self.cloud, self.grid, self.cfg,
-                              campos=campos,
-                              raydir=raydir[None, s:s + chunk_rays],
-                              camrotc2w=rot, near=near, far=far,
-                              bg_color=bg, table=table)
+            rd = raydir[None, s:s + chunk_rays]
+            if self.perspective:
+                out = render_rays_perspective(self.params, self.cloud,
+                                              self.pspec, self.cfg, raydir=rd,
+                                              **cam)
+            else:
+                out = render_rays(self.params, self.cloud, self.grid,
+                                  self.cfg, raydir=rd, **cam)
             cols.append(out["coarse_raycolor"][0])
         return torch.cat(cols)[:R].cpu().numpy()

@@ -836,3 +836,192 @@ def test_bpnet_forward_on_the_card_matches_the_cpu(dev, dtype):
     else:
         agree = (gs.argmax(-1) == cs.argmax(-1)).float().mean().item()
         assert agree > 0.95, agree
+
+
+# ------------------------------------ the aggregator variants, the perspective
+# path: no kernel of their own (the reference's gate keeps the variants
+# un-fused); one chunk on the card against the same on the CPU, f32 with
+# TF32 off: the same products summed in other orders.
+AGG_VARIANTS = {
+    "block2": dict(shading_feature_mlp_layer2=2),
+    "block3": dict(shading_feature_mlp_layer3=2),
+    "bpnet_block3": dict(shading_feature_mlp_layer2_bpnet=1,
+                         predict_semantic=1, shading_feature_mlp_layer3=2),
+    "yuze": dict(agg_variant="yuze", shading_feature_mlp_layer3=1,
+                 shading_feature_mlp_layer4=1),
+    "yuze_linear": dict(agg_variant="yuze", shading_feature_mlp_layer4=2,
+                        shading_feature_mlp_linear=1),
+    "order1": dict(agg_intrp_order=1),
+    "trilinear": dict(agg_distance_kernel="trilinear"),
+    "sh_intrp": dict(agg_distance_kernel="sh_intrp"),
+    "gau_intrp": dict(agg_distance_kernel="gau_intrp"),
+    # the non-unit axis-weight branches; on the default variant they run
+    # through K2 (the reference's gate), so here behind block2 / block3
+    "quadric_axis": dict(agg_distance_kernel="quadric", agg_dist_pers=0,
+                         axis_weight=(1.0, 0.5, 2.0),
+                         shading_feature_mlp_layer2=1),
+    "linear_axis": dict(axis_weight=(2.0, 0.5, 1.0),
+                        shading_feature_mlp_layer3=2),
+}
+# the gradients' floor: where 4x the CPU's own float32 error was smaller,
+# the card's float32 gradients lay at most 1.19e-4 (block2) and 4.4e-5
+# (order1) from the CPU's float64 ones (H100, f32, TF32 off, two runs);
+# 3e-4 leaves a 2.5x margin and stays below TF32's 2^-11 = 4.9e-4
+# rounding of each product's inputs
+VARIANT_GRAD_TOL = 3e-4
+
+
+def _kernel_launches():
+    return (fused_block1_alpha.launches, fused_block1_alpha_bwd.launches,
+            fused_block1_alpha_color.launches,
+            fused_block1_alpha_color_march.launches)
+
+
+@pytest.mark.parametrize("name", sorted(AGG_VARIANTS))
+def test_aggregator_variant_on_the_card_matches_the_cpu(dev, name):
+    """A 9216-shading-point chunk (K 8) of each variant with every kernel
+    flag on: no fused kernel launches (forward and backward); the decoded
+    output within 1e-4 of the CPU's; each gradient of sum(decoded^2), max
+    |diff| / max |ref| against the CPU's float64 one, within
+    VARIANT_GRAD_TOL or 4x the CPU's own float32 error where that is
+    larger: the embedding's float32 gradient lies ~3e-2 from float64 on
+    the CPU too (PE's high frequencies and LeakyReLU branches amplify the
+    rounding).
+    Trilinear divides by the reference's grid_vox_sz of 0 (floored at
+    1e-8): its weights' gradients overflow to NaN in float32, at the same
+    places on the card as on the CPU."""
+    from sgnerf_tpu_torch.models.aggregator import (AggregatorConfig,
+                                                    aggregate,
+                                                    init_aggregator_params)
+    cfg = AggregatorConfig(fused_mlp="cuda", fused_color=True,
+                           **AGG_VARIANTS[name])
+    rng = np.random.default_rng(7)
+    B, R, SR, K = 1, 384, 24, 8
+
+    def mk(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(
+            np.float32))
+    d = mk(B, R, SR, K, 3)
+    xyz = mk(B, R, SR, K, 3, scale=0.02)
+    loc = mk(B, R, SR, 3, scale=0.02)
+    kw = dict(sampled_embedding=mk(B, R, SR, K, 32, scale=0.3),
+              sampled_conf=mk(B, R, SR, K, 1).abs(),
+              sampled_label_embedding=mk(B, R, SR, K, 96),
+              sampled_color=mk(B, R, SR, K, 3).sigmoid(),
+              sampled_dir=d / d.norm(dim=-1, keepdim=True),
+              sampled_xyz=xyz, sampled_xyz_pers=xyz + 1.5,
+              sample_pnt_mask=torch.from_numpy(rng.random((B, R, SR, K))
+                                               < 0.7),
+              sample_loc=loc + 1.5, sample_loc_w=loc,
+              sample_ray_dirs=mk(B, R, SR, 3))
+    p = init_aggregator_params(0, cfg)
+    cpu = torch.device("cpu")
+    outs = []
+    for d_, dt in ((dev, torch.float32), (cpu, torch.float32),
+                   (cpu, torch.float64)):
+        n0 = _kernel_launches()
+        dkw = {k: v.to(d_, dt) if v.is_floating_point() else v.to(d_)
+               for k, v in kw.items()}
+        emb = dkw["sampled_embedding"].requires_grad_(True)
+        ts = [t.detach().to(d_, dt).requires_grad_(True)
+              for v in p.values() for l_ in v for t in l_.values()]
+        it = iter(ts)
+        params = {k: [{n: next(it) for n in l_} for l_ in v]
+                  for k, v in p.items()}
+        dec = aggregate(params, cfg, vsize=(0.008,) * 3,
+                        **dict(dkw, sampled_embedding=emb))[0]
+        grads = torch.autograd.grad((dec ** 2).sum(), ts + [emb])
+        assert _kernel_launches() == n0
+        outs.append((dec.detach().cpu().double(),
+                     [g.cpu().double() for g in grads]))
+    (dec, got), (rdec, ref32), (_, ref) = outs
+    assert torch.isfinite(dec).all()
+    torch.testing.assert_close(dec, rdec, atol=1e-4, rtol=1e-4)
+    nan = [torch.isnan(g) for g in ref32]      # float32 overflows only
+    assert all(torch.equal(torch.isnan(g), m) for g, m in zip(got, nan))
+    assert any(m.any() for m in nan) == (name == "trilinear")
+
+    def finite(gs):
+        return [torch.where(m, 0, g) for g, m in zip(gs, nan)]
+    e_card = _rel_errs(finite(got), finite(ref))
+    e_cpu = _rel_errs(finite(ref32), finite(ref))
+    print(name, "card", max(e_card), "cpu f32", max(e_cpu), "floor-bound",
+          max((a for a, b in zip(e_card, e_cpu) if a > 4 * b), default=0.0))
+    bad = [(i, a, b) for i, (a, b) in enumerate(zip(e_card, e_cpu))
+           if a > max(4 * b, VARIANT_GRAD_TOL)]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_perspective_chunk_on_the_card_matches_the_cpu(dev, train):
+    """One 1024-ray chunk of render_rays_perspective (a sphere of 20k
+    points seen from 3 m): the card's frame grid and neighbour ids equal
+    the CPU's; colours within 1e-4 (K2 on the card, its plain version on
+    the CPU); training (the uniform shading-point jitter, the same noise on
+    both) launches K2 and K3 once each."""
+    from sgnerf_tpu_torch.models.aggregator import (AggregatorConfig,
+                                                    init_aggregator_params)
+    from sgnerf_tpu_torch.models.point_cloud import make_point_cloud
+    from sgnerf_tpu_torch.models.renderer import (RenderConfig,
+                                                  draw_render_noise,
+                                                  render_rays_perspective)
+    from sgnerf_tpu_torch.ops.query_pers import (perspective_grid,
+                                                 perspective_spec_from_camera)
+    rng = np.random.default_rng(0)
+    n = 20000
+    xyz = rng.normal(size=(n, 3)).astype(np.float32)
+    xyz /= np.linalg.norm(xyz, axis=-1, keepdims=True)
+    emb = (rng.normal(size=(n, 32)) * 0.2).astype(np.float32)
+    intr = np.array([[80.0, 0, 32.0], [0, 80.0, 16.0], [0, 0, 1]])
+    spec = perspective_spec_from_camera(intr, 64, 32, 1.0, 5.0, [0.01] * 3,
+                                        [2, 2, 2], [3, 3, 3], 40000, 8)
+    R = 1024
+    d = (rng.normal(size=(1, R, 3)) * 0.2).astype(np.float32)
+    d[..., 2] = 1.0
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    cam = dict(campos=torch.tensor([[0.0, 0.0, -3.0]]),
+               raydir=torch.from_numpy(d),
+               camrotc2w=torch.eye(3)[None], bg_color=torch.ones(3))
+    base = AggregatorConfig()
+    p = init_aggregator_params(0, base)
+    rcfg = RenderConfig(agg=base, z_depth_dim=128, SR=8, K=8,
+                        vsize=(0.01,) * 3, shpnt_jitter="uniform")
+    noise = draw_render_noise(torch.Generator().manual_seed(1), rcfg, 1, R,
+                              is_train=True, perspective=True) \
+        if train else None
+    outs, grids = [], []
+    for d_ in (dev, torch.device("cpu")):
+        cfg = dataclasses.replace(rcfg, agg=dataclasses.replace(
+            base, fused_mlp="cuda" if d_.type == "cuda" else "none"))
+        cloud = make_point_cloud(xyz, emb, capacity=n, device=d_)
+        params = {k: [{m: t.to(d_) for m, t in l_.items()} for l_ in v]
+                  for k, v in p.items()}
+        grids.append(perspective_grid(cloud.xyz, cloud.active,
+                                      cam["camrotc2w"][0].to(d_),
+                                      cam["campos"][0].to(d_), spec)[0])
+        n0 = _kernel_launches()
+        with torch.set_grad_enabled(train):
+            if train:
+                for l_ in params["block1"]:
+                    for t in l_.values():
+                        t.requires_grad_(True)
+            out = render_rays_perspective(
+                params, cloud, spec, cfg, near=1.0, far=5.0,
+                is_train=train,
+                noise=None if noise is None else {
+                    k: v.to(d_) for k, v in noise.items()},
+                **{k: v.to(d_) for k, v in cam.items()})
+            if train:
+                (out["coarse_raycolor"] ** 2).sum().backward()
+        k2, k3 = (a - b for a, b in zip(_kernel_launches()[:2], n0[:2]))
+        assert (k2, k3) == ((1, int(train)) if d_.type == "cuda"
+                            else (0, 0)), (k2, k3)
+        outs.append({k: v.detach().cpu() for k, v in out.items()
+                     if torch.is_tensor(v)})
+    assert torch.equal(grids[0].vox_slot.cpu(), grids[1].vox_slot)
+    assert torch.equal(grids[0].bucket_pnts.cpu(), grids[1].bucket_pnts)
+    a, b = outs
+    assert torch.equal(a["ray_mask"], b["ray_mask"])
+    assert b["ray_mask"].float().mean() > 0.3
+    torch.testing.assert_close(a["coarse_raycolor"], b["coarse_raycolor"],
+                               atol=1e-4, rtol=0)

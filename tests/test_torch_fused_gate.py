@@ -59,6 +59,25 @@ def test_gate_from_the_option_flags(flags, want):
         assert _paths(flags, training=True) == want
 
 
+@pytest.mark.parametrize("flags", [
+    ["--which_agg_model", "viewmlp_yuze"],            # agg_variant
+    ["--shading_feature_mlp_layer2", "1"],
+    ["--shading_feature_mlp_layer3", "2"],            # scene0000_00.sh
+    ["--agg_intrp_order", "1"],
+    ["--agg_distance_kernel", "trilinear"],
+    ["--agg_distance_kernel", "sh_intrp"],
+    ["--agg_distance_kernel", "gau_intrp"],
+], ids=["yuze", "layer2", "layer3", "order1", "trilinear", "sh_intrp",
+        "gau_intrp"])
+def test_gate_keeps_the_variants_unfused(flags):
+    """The reference's gate (aggregator.py:489-501): the variants run the
+    un-fused path with every kernel flag on, forward and training."""
+    for extra in ([], ["--fused_color", "on"]):
+        assert _paths(flags + extra) == "none"
+        assert _paths(flags + extra, training=True) == "none"
+    assert _paths(flags + ["--fused_march", "on"], march=True) == "none"
+
+
 def test_gate_steps_the_march_down():
     """K5 runs eval renders where it fits; past K4's range the colour head
     and the march leave the kernel."""

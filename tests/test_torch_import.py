@@ -24,7 +24,9 @@ assert len(names) >= 20, names
 for want in ("ops.pallas_gather", "runtime.growing", "dev.probe_gather",
              "ops.sparse", "models.mvs", "models.bpnet.bpnet",
              "models.bpnet.unet2d", "models.bpnet.unet3d",
-             "models.bpnet.linking", "runtime.semantic"):
+             "models.bpnet.linking", "runtime.semantic", "ops.query_pers",
+             "utils.spherical", "data.load_blender", "data.data_utils",
+             "data.nerf_synth_ft_dataset"):
     assert "sgnerf_tpu_torch." + want in names, want
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "triton", "sgnerf_tpu",
@@ -150,10 +152,10 @@ def test_scene_model_device_comes_from_gpu_ids():
 
 @pytest.mark.parametrize("flags", [
     ["--gather_dtype", "int8"],
-    ["--shading_feature_mlp_layer3", "1"],
-    ["--agg_intrp_order", "1"],
-    ["--which_agg_model", "viewmlp_yuze"],
-    ["--wcoord_query", "0"],
+    ["--bgmodel", "plane"],
+    ["--dataset_name", "dtu_ft"],
+    ["--dataset_name", "dtu"],
+    ["--knn_mode", "approx", "--cache_dtype", "float32"],
     ["--scene_shards", "2"],
     ["--ray_shards", "4"],
     ["--knn_mode", "approx"],

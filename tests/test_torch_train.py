@@ -427,7 +427,7 @@ def test_train_ft_cli_runs_and_writes_checkpoints(scans, tmp_path):
     assert (tmp_path / "prof" / "train_ft_2.json").exists()
 
 
-@pytest.mark.parametrize("flags", [["--wcoord_query", "0"],
+@pytest.mark.parametrize("flags", [["--scene_shards", "2"],
                                    ["--bgmodel", "plane"],
                                    ["--gather_dtype", "int8"],
                                    ["--gather_dtype", "bfloat16"]])
