@@ -149,7 +149,22 @@ fine-tune train step (the flags of scene0113_00_default.sh). Phases:
      on the step's own chunk (phases 5's and 7's checks and tolerances);
      then one 800x800 test frame and its frame grid, timed: K2 once a
      chunk, under torch.profiler once, within RENDER_ATOL of the un-fused
-     path's frame.
+     path's frame;
+ 19. the DTU path on a seeded DTU scan at DTU's sizes (49 views, pair.txt,
+     640x512 images, 160x128 depth maps, cam files at 1/4; a sphere on
+     dtu_ft's ground plane 0): MVSNet's depth inference (D 128, 3 views at
+     640x480, seeded weights) on the card against the port's CPU forward
+     (MVS_CPU_TOL) and its ms a call; dev_scripts/dtu_test_inf/
+     inftest_scan1.sh's flags through train_ft.main at --maximum_step 0,
+     the cloud from the dataset's depth (--manual_depth_view 0), then a
+     second bootstrap through MVSNet (--manual_depth_view 1
+     --depth_conf_thresh 0 --geo_cnsst_num 0): point counts, the
+     bootstrap's and create_all_bg's seconds, the test frame's PSNR, then
+     the frame again warm (ms, PSNR) and under torch.profiler; the ete
+     script dtu_dgt_d012_img0123_conf_color_dir_agg2.sh through
+     run/train.py: 10 steps (n_points, the median step, one step under
+     torch.profiler), saves at 5 and 10, a resume from 10_feedforward.pkl,
+     FeatureNet's first weight moved. Neither DTU path launches a kernel.
 
 Any failure raises and the script exits non-zero before its last line.
 The last line is {"ok": true, "device": {...}}; the line before it holds
@@ -576,7 +591,7 @@ def main():
 
     for d in ("smoke", "smoke_ft", "smoke_scans", "smoke_grow", "smoke_sem",
               "smoke_sem_scans", "smoke_b3", "smoke_nerf",
-              "smoke_pers"):                          # this script's outputs
+              "smoke_pers", "smoke_dtu", "smoke_dtu_data"):  # its outputs
         shutil.rmtree(os.path.join(REPO, "build", d), ignore_errors=True)
 
     t_last = [time.perf_counter()]
@@ -733,6 +748,10 @@ def main():
     # ---- 18. the perspective path (--wcoord_query 0) at full width
     phase18_perspective()
     stamp("phase 18")
+
+    # ---- 19. the DTU path: MVS nets, bootstrap, plane, feed-forward
+    phase19_dtu()
+    stamp("phase 19")
 
     log(json.dumps({"kernels": [records[k] for k in sorted(records)]}))
     log(json.dumps({"ok": True, "device": {
@@ -2884,6 +2903,429 @@ def phase18_perspective():
     assert diff <= RENDER_ATOL, diff
     del model
     torch.cuda.empty_cache()
+
+
+
+# ---------------------------------------------------- 19. the DTU path
+DTU_VIEWS = 49                     # DTU's views a scan
+DTU_NATIVE = (640, 512)            # MVSNet's rectified training images
+DTU_DEPTH = (160, 128)             # its depth maps and cam files (1/4)
+DTU_F = 720.0                      # native focal (pixels)
+DTU_FF_STEPS = 10
+# ground plane 0 of dtu_ft's table (pointnerf dtu_ft_dataset.py:894-899)
+DTU_PLANE_PNT = np.array([-0.49666997, 0.52160616, 3.6239593])
+DTU_PLANE_N = np.array([-0.11364093, 0.38778102, 0.91471942])
+DTU_SPHERE_R = 0.35
+DTU_TABLE_R = 0.8                  # depth maps cover the table this far
+MVS_CPU_TOL = {"depth": 1e-4, "prob": 1e-4, "conf": 1e-4, "flips": 0.01}
+
+
+def script_args(path):
+    """The python command's arguments of a dev_scripts/*.sh (its `source`d
+    body put in place, its shell variables substituted)."""
+    import shlex
+    lines = []
+    for line in open(path).read().replace("\\\n", " ").splitlines():
+        if line.strip().startswith("source "):
+            inc = os.path.join(os.path.dirname(path),
+                               os.path.basename(shlex.split(line)[1]))
+            lines += open(inc).read().replace("\\\n", " ").splitlines()
+        else:
+            lines.append(line)
+    env = {}
+    for line in lines:
+        k, eq, v = line.partition("=")
+        if eq and k.isidentifier():
+            env[k] = (shlex.split(v) or [""])[0]
+    cmd = next(l_ for l_ in lines if l_.strip().startswith("python"))
+    for k in sorted(env, key=len, reverse=True):
+        cmd = cmd.replace("${" + k + "}", env[k]).replace("$" + k, env[k])
+    return shlex.split(cmd)[2:]
+
+
+def _dtu_cast(pos, dirs):
+    """z-depth t (dirs have camera z = 1 in their frame, turned to world)
+    of the first hit of the sphere on the table or of the table, the
+    surface (0 sphere, 1 table, -1 none) and the hit points; float64
+    tensors on the rays' device."""
+    import torch
+    dev = dirs.device
+    n = torch.tensor(DTU_PLANE_N / np.linalg.norm(DTU_PLANE_N), device=dev)
+    p0 = torch.tensor(DTU_PLANE_PNT, device=dev)
+    c0 = p0 - DTU_SPHERE_R * n
+    pos = torch.as_tensor(pos, device=dev)
+    oc = pos - c0
+    b = dirs @ oc
+    a = (dirs * dirs).sum(-1)
+    disc = b * b - a * ((oc @ oc) - DTU_SPHERE_R ** 2)
+    inf = torch.full_like(b, float("inf"))
+    t_s = torch.where(disc > 0, (-b - disc.clamp(min=0).sqrt()) / a, inf)
+    t_s = torch.where(t_s > 0, t_s, inf)
+    dn = dirs @ n
+    t_p = torch.where(dn > 1e-6, ((p0 - pos) @ n) / torch.where(
+        dn > 1e-6, dn, torch.ones_like(dn)), inf)
+    t = torch.minimum(t_s, t_p)
+    miss = torch.isinf(t)
+    surf = torch.where(miss, -1, torch.where(t_s <= t_p, 0, 1))
+    t = torch.where(miss, torch.zeros_like(t), t)
+    return t, surf, pos + dirs * t[:, None]
+
+
+def write_dtu_scan(root, seed=12, dev="cuda"):
+    """A seeded DTU scan in the MVSNet layout at DTU's sizes: 49 views
+    (seven rings of seven around the plane's normal, 3.2 m from a 0.35 m
+    sphere standing on plane 0), pair.txt with 10 sources a view by
+    viewing angle, 640x512 textured images, 160x128 depth maps (the
+    sphere and the table within 0.8 m of its foot) and cam files at 1/4
+    scale. The rays are cast on `dev`."""
+    import torch
+    from PIL import Image
+    rng = np.random.default_rng(seed)
+    n = DTU_PLANE_N / np.linalg.norm(DTU_PLANE_N)
+    c0 = DTU_PLANE_PNT - DTU_SPHERE_R * n
+    u = np.cross(n, [1.0, 0, 0])
+    u /= np.linalg.norm(u)
+    v_ = np.cross(n, u)
+    cams, fwds = [], []
+    for r in range(7):
+        th = np.radians(8 + 4 * r)
+        for j in range(7):
+            ph = 2 * np.pi * j / 7 + 0.3 * r
+            fwd = np.cos(th) * n + np.sin(th) * (np.cos(ph) * u
+                                                  + np.sin(ph) * v_)
+            pos = c0 - 3.2 * fwd
+            x = np.cross([0.0, 1.0, 0.0], fwd)
+            x /= np.linalg.norm(x)
+            c2w = np.eye(4)
+            c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = (
+                x, np.cross(fwd, x), fwd, pos)
+            cams.append(c2w)
+            fwds.append(fwd)
+    camdir = os.path.join(root, "Cameras", "train")
+    rect = os.path.join(root, "Rectified", "scan1_train")
+    depths = os.path.join(root, "Depths", "scan1_train")
+    for d in (camdir, rect, depths):
+        os.makedirs(d, exist_ok=True)
+    fwds = np.stack(fwds)
+    pair = [str(DTU_VIEWS)]
+    k4 = np.array([[DTU_F / 4, 0, DTU_NATIVE[0] / 8],
+                   [0, DTU_F / 4, DTU_NATIVE[1] / 8], [0, 0, 1]])
+    for vid, c2w in enumerate(cams):
+        ang = np.degrees(np.arccos(np.clip(fwds @ fwds[vid], -1, 1)))
+        srcs = [int(s) for s in np.argsort(ang) if s != vid][:10]
+        pair += [str(vid), " ".join([str(len(srcs))] + [
+            f"{s} {100 - ang[s]:.3f}" for s in srcs])]
+        w2c = np.linalg.inv(c2w)
+        with open(os.path.join(camdir, f"{vid:08d}_cam.txt"), "w") as f:
+            f.write("extrinsic\n" + "\n".join(
+                " ".join(f"{x:.8f}" for x in row) for row in w2c)
+                + "\n\nintrinsic\n" + "\n".join(
+                " ".join(f"{x:.8f}" for x in row) for row in k4)
+                + f"\n\n2.0 {(4.725 - 2.0) / 192:.6f}\n")
+        for (W, H), scale, kind in ((DTU_NATIVE, 4.0, "img"),
+                                    (DTU_DEPTH, 1.0, "depth")):
+            k = k4 * np.array([[scale], [scale], [1.0]])
+            gy, gx = torch.meshgrid(
+                torch.arange(H, dtype=torch.float64, device=dev),
+                torch.arange(W, dtype=torch.float64, device=dev),
+                indexing="ij")
+            d_cam = torch.stack([(gx + 0.5 - k[0, 2]) / k[0, 0],
+                                 (gy + 0.5 - k[1, 2]) / k[1, 1],
+                                 torch.ones_like(gx)], -1).reshape(-1, 3)
+            t, surf, hit = _dtu_cast(
+                c2w[:3, 3], d_cam @ torch.tensor(c2w[:3, :3].T, device=dev))
+            if kind == "depth":
+                far_table = (surf == 1) & ((hit - torch.tensor(
+                    DTU_PLANE_PNT, device=dev)).norm(dim=-1) > DTU_TABLE_R)
+                depth = torch.where(far_table | (surf < 0),
+                                    torch.zeros_like(t), t).cpu().numpy()
+                with open(os.path.join(depths, f"depth_map_{vid:04d}.pfm"),
+                          "wb") as f:
+                    f.write(b"Pf\n" + f"{W} {H}\n".encode() + b"-1.0\n")
+                    np.flipud(depth.reshape(H, W)).astype("<f").tofile(f)
+                continue
+            ph = torch.tensor([0.0, 2.1, 4.2], device=dev)
+            sph = 0.5 + 0.35 * torch.sin(
+                9 * hit[:, :1] + 7 * hit[:, 1:2] + 5 * hit[:, 2:3] + ph)
+            tab = 0.975 + 0.02 * torch.sin(3 * hit[:, :1] + ph) \
+                * torch.cos(3 * hit[:, 1:2])
+            col = torch.where((surf == 0)[:, None], sph, torch.where(
+                (surf == 1)[:, None], tab, torch.zeros_like(tab)))
+            col = col.cpu().numpy() + rng.normal(0, 0.004, col.shape)
+            Image.fromarray((np.clip(col, 0, 1) * 255).round().astype(
+                np.uint8).reshape(H, W, 3)).save(
+                os.path.join(rect, f"rect_{vid + 1:03d}_3_r5000.png"),
+                compress_level=1)
+    with open(os.path.join(root, "Cameras", "pair.txt"), "w") as f:
+        f.write("\n".join(pair) + "\n")
+
+
+def timed(module, name, store):
+    """Wrap module.<name> so each call's seconds (synchronised) are
+    appended to store[name]. Returns the original."""
+    import torch
+    fn = getattr(module, name)
+
+    def wrapped(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        store.setdefault(name, []).append(time.perf_counter() - t0)
+        return out
+    setattr(module, name, wrapped)
+    return fn
+
+
+def phase19_mvsnet(dataset, opt, dev):
+    """MVSNet's depth inference at D 128 on one init item (3 views at
+    img_wh) with seeded weights: the card against the port's CPU forward,
+    and the ms of a call."""
+    import torch
+    from sgnerf_tpu_torch.runtime.mvs_bootstrap import mvs_model, mvsnet_inputs
+    item = dataset.get_init_item(0)
+    card = mvs_model(opt, dev)
+    cpu = mvs_model(opt, "cpu")
+    ins = mvsnet_inputs(item, opt.depth_grid, dev)
+    with torch.no_grad():
+        d, c, p = card.predict_depth(*ins[:3])
+        ms = cuda_ms(lambda: card.predict_depth(*ins[:3]), reps=5)
+        t0 = time.perf_counter()
+        dc, cc, pc = cpu.predict_depth(*mvsnet_inputs(item, opt.depth_grid,
+                                                      "cpu")[:3])
+        cpu_s = time.perf_counter() - t0
+    d, c, p = d.cpu(), c.cpu(), p.cpu()
+    near, far = float(item["near"]), float(item["far"])
+    D = p.shape[0]
+    ar = torch.arange(D, dtype=torch.float32)[:, None, None]
+    same = (p * ar).sum(0).int() == (pc * ar).sum(0).int()
+    err = {"depth": float((d - dc).abs().max()) / (far - near),
+           "prob": float((p - pc).abs().max()),
+           "conf": float((c - cc).abs()[same].max()),
+           "flips": float((~same).float().mean())}
+    log(f"phase 19: MVSNet depth inference, {len(item['images'])} views "
+        f"{tuple(item['images'].shape[1:3])}, D {D}, depth {tuple(d.shape)}: "
+        f"card {ms:.2f} ms a call (CPU forward {cpu_s:.1f} s); card vs CPU: "
+        f"depth {err['depth']:.2e} of (far - near), prob {err['prob']:.2e}, "
+        f"conf {err['conf']:.2e} where the truncated index agrees, which it "
+        f"does not on {err['flips']:.2%} (limits {MVS_CPU_TOL}); finite "
+        f"{bool(torch.isfinite(d).all())}")
+    assert torch.isfinite(d).all() and torch.isfinite(c).all()
+    assert all(err[k] <= MVS_CPU_TOL[k] for k in err), err
+
+
+def phase19_inftest(ck, flags):
+    """inftest_scan1.sh's flags through train_ft at --maximum_step 0: the
+    MVS bootstrap, every train frame's plane background, the save, the
+    export and the test frame; once on the dataset's depth, once on
+    MVSNet's. Then the test frame again, warm and under torch.profiler."""
+    import torch
+    from sgnerf_tpu_torch.models import background
+    from sgnerf_tpu_torch.options import TestOptions
+    from sgnerf_tpu_torch.run import train_ft
+    from sgnerf_tpu_torch.runtime import mvs_bootstrap
+    from sgnerf_tpu_torch.runtime.scene_model import SceneModel
+    from sgnerf_tpu_torch.utils.metrics import psnr
+    from sgnerf_tpu_torch.data import create_dataset
+    runs = {
+        "dataset depth": {"--manual_depth_view": ["0"]},
+        "MVSNet depth": {"--manual_depth_view": ["1"],
+                         "--depth_conf_thresh": ["0"],
+                         "--geo_cnsst_num": ["0"]},
+    }
+    log("phase 19: reduction: the cloud comes from --manual_depth_view 0 "
+        "(the dataset's depth maps), not 1: seeded MVSNet weights give "
+        "meaningless confidences")
+    log("phase 19: reduction: a second bootstrap with --manual_depth_view 1 "
+        "--depth_conf_thresh 0 --geo_cnsst_num 0 runs the MVSNet branch end "
+        "to end")
+    counts = {}
+    for i, (what, over) in enumerate(runs.items()):
+        name = f"inf{i}"
+        store = {}
+        origs = [(mvs_bootstrap, "gen_points_filter_embeddings",
+                  timed(mvs_bootstrap, "gen_points_filter_embeddings",
+                        store)),
+                 (train_ft, "create_all_bg",
+                  timed(train_ft, "create_all_bg", store))]
+        tee = Tee(sys.stdout)
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(tee):
+                train_ft.main(with_flags(flags, dict(over, **{
+                    "--name": [name]})))
+        finally:
+            for mod, attr, fn in origs:
+                setattr(mod, attr, fn)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        out = tee.buf.getvalue()
+        n = int(out.split("MVS bootstrap produced ")[1].split()[0])
+        counts[what] = n
+        psnr_l = [l_ for l_ in out.splitlines() if "psnr:" in l_]
+        log(f"phase 19: train_ft with inftest_scan1.sh's flags ({what}): "
+            f"{n} points; bootstrap {store['gen_points_filter_embeddings'][0]:.2f}"
+            f" s, create_all_bg over the train frames "
+            f"{store['create_all_bg'][0]:.2f} s, whole run "
+            f"{time.perf_counter() - t0:.1f} s; {psnr_l[-1].strip()}; "
+            f"{sum(launches.values())} kernel launches {launches}")
+        assert "[bgmodel] plane backgrounds for" in out
+        assert "training from step 0 to 0" in out and n > 1000
+        assert sum(launches.values()) == 0, launches
+        for f in ("0_net_ray_marching.npz", "0_net_ray_marching.pth"):
+            assert os.path.exists(os.path.join(ck, name, f)), f
+        assert all(np.isfinite(float(l_.split("psnr:")[1].split()[0]))
+                   for l_ in psnr_l)
+
+    # the test frame again: warm, its PSNR, under the profiler
+    topt = TestOptions().parse(with_flags(flags, {
+        "--name": ["inf0"], "--resume_iter": ["0"], "--resume_dir": [""]}))
+    topt.split, topt.random_sample = "test", "no_crop"
+    ds = create_dataset(topt)
+    model = SceneModel(topt)
+    with contextlib.redirect_stdout(io.StringIO()):
+        model.load_checkpoint(model.resolve_resume())
+    item = ds.get_item(0, full_img=True)
+    init = ds.get_init_item(0)
+    act = model.cloud.active
+    cloud = model.cloud.xyz[act].cpu().numpy()
+    bg = background.plane_bg_ray(item, init, cloud, device=model.device)
+    reset_launches()
+    col = model.render_image(item, bg_image=bg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    col = model.render_image(item, bg_image=bg)
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    hit = float(np.mean(np.any(bg > 0, -1)))
+    log(f"phase 19: test frame {item['w']}x{item['h']} with its plane "
+        f"background ({hit:.1%} of rays with a plane colour): warm "
+        f"{warm_ms:.1f} ms, PSNR {psnr(col, item['gt_image']):.3f}, "
+        f"launches {read_launches()}")
+    assert np.isfinite(col).all() and hit > 0.05
+    assert sum(read_launches().values()) == 0
+    profile_call("phase 19: profiled test frame",
+                 lambda: model.render_image(item, bg_image=bg))
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase19_ete(ck, flags):
+    """dtu_dgt_d012_img0123_conf_color_dir_agg2.sh's flags through
+    run/train.py: DTU_FF_STEPS steps (a save halfway and at the end), the
+    median step, one step under torch.profiler, then a resume from the
+    last save for two more steps; FeatureNet's first weight must have
+    moved."""
+    import pickle
+    import torch
+    from sgnerf_tpu_torch.models import feedforward as ff
+    from sgnerf_tpu_torch.models.mvs import MVSConfig, init_mvs_params
+    from sgnerf_tpu_torch.run import train
+    step_s = []
+    make = train.make_feedforward_step
+
+    def timed_make(*args, **kw):
+        fn = make(*args, **kw)
+
+        def step(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            if len(step_s) == 3:
+                profile_call("phase 19: profiled feed-forward step",
+                             lambda: fn(*a, **k))
+            return out
+        return step
+    train.make_feedforward_step = timed_make
+    half = str(DTU_FF_STEPS // 2)
+    tee = Tee(sys.stdout)
+    reset_launches()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            train.main(with_flags(flags, {
+                "--maximum_step": [str(DTU_FF_STEPS)],
+                "--save_iter_freq": [half], "--print_freq": [half]}))
+        run_s = time.perf_counter() - t0
+        launches = read_launches()
+        out = tee.buf.getvalue()
+        n_pts = sorted({l_.split("n_points: ")[1].split(",")[0]
+                        for l_ in out.splitlines() if "n_points: " in l_})
+        log(f"phase 19: run/train.py with the ete script's flags: "
+            f"{DTU_FF_STEPS} steps in {run_s:.1f} s, n_points {n_pts}, "
+            f"step ms {[round(s * 1e3, 1) for s in step_s]}, median "
+            f"{statistics.median(step_s[:DTU_FF_STEPS]) * 1e3:.1f} ms; "
+            f"{sum(launches.values())} kernel launches {launches}")
+        assert sum(launches.values()) == 0, launches
+        expr = os.path.join(ck, "dtu_dgt_d012_img0123_conf_color_dir_agg2")
+        for f in (f"{half}_feedforward.pkl", f"{DTU_FF_STEPS}_feedforward.pkl",
+                  f"{DTU_FF_STEPS}_feedforward.npz"):
+            assert os.path.exists(os.path.join(expr, f)), f
+        losses = [l_ for l_ in out.splitlines() if l_.startswith("step: ")]
+        assert losses and all("ray_depth_masked_coarse_raycolor" in l_
+                              for l_ in losses), losses
+        tee = Tee(sys.stdout)
+        with contextlib.redirect_stdout(tee):
+            train.main(with_flags(flags, {
+                "--maximum_step": [str(DTU_FF_STEPS + 2)],
+                "--save_iter_freq": [half], "--print_freq": ["1"]}))
+    finally:
+        train.make_feedforward_step = make
+    out = tee.buf.getvalue()
+    line = next(l_ for l_ in out.splitlines() if "resumed" in l_)
+    log(f"phase 19: resume: {line.strip()}; then steps "
+        f"{[l_.split(',')[0] for l_ in out.splitlines() if l_.startswith('step: ')]}")
+    assert f"{DTU_FF_STEPS}_feedforward.pkl (step {DTU_FF_STEPS})" in line
+    with open(os.path.join(expr, f"{DTU_FF_STEPS}_feedforward.pkl"),
+              "rb") as f:
+        tree = pickle.load(f)
+    from sgnerf_tpu_torch.models.params import mvs_params_from_jax
+    w = ff.tree_leaves(mvs_params_from_jax(tree["mvs"])["FeatureNet"])[0]
+    w0 = ff.tree_leaves(init_mvs_params(0, MVSConfig())["FeatureNet"])[0]
+    moved = float((w - w0).abs().max())
+    log(f"phase 19: FeatureNet's first weight moved by {moved:.3e} (max) "
+        f"over {DTU_FF_STEPS} steps")
+    assert moved > 0
+    torch.cuda.empty_cache()
+
+
+def phase19_dtu(dev="cuda", inf_over=None, ete_over=None):
+    """Phase 19: the DTU path on a seeded DTU scan at DTU's sizes: MVSNet's
+    depth inference (card vs CPU), inftest_scan1.sh through train_ft (the
+    MVS bootstrap, the plane background), the ete script through
+    run/train.py (the feed-forward trainer, save and resume); no kernel
+    launches on either path. inf_over / ete_over ({flag: [values]}) and
+    dev="cpu" serve a rehearsal on the CPU at a small size."""
+    from sgnerf_tpu_torch.data import create_dataset
+    from sgnerf_tpu_torch.options import TrainOptions
+    build = os.path.join(REPO, "build")
+    data = os.path.join(build, "smoke_dtu_data")
+    ck = os.path.join(build, "smoke_dtu")
+    t0 = time.perf_counter()
+    write_dtu_scan(data, dev=dev)
+    log(f"phase 19: DTU scan ({DTU_VIEWS} views {DTU_NATIVE[0]}x"
+        f"{DTU_NATIVE[1]}, depth {DTU_DEPTH[0]}x{DTU_DEPTH[1]}) written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    inf = with_flags(script_args(os.path.join(
+        REPO, "dev_scripts", "dtu_test_inf", "inftest_scan1.sh")), {
+        "--data_root": [data], "--checkpoints_dir": [ck],
+        "--resume_dir": [os.path.join(ck, "no_init")],
+        "--pre_d_est": [os.path.join(ck, "no_mvsnet.ckpt")],
+        "--gpu_ids": ["0" if dev == "cuda" else "-1"], **(inf_over or {})})
+    opt = TrainOptions().parse(inf)
+    opt.split = "train"
+    phase19_mvsnet(create_dataset(opt), opt, dev)
+    phase19_inftest(ck, inf)
+    ete = with_flags(script_args(os.path.join(
+        REPO, "dev_scripts", "ete",
+        "dtu_dgt_d012_img0123_conf_color_dir_agg2.sh")), {
+        "--data_root": [data], "--checkpoints_dir": [ck],
+        "--gpu_ids": ["0" if dev == "cuda" else "-1"],
+        "--resume_dir": [os.path.join(ck, "no_init")], **(ete_over or {})})
+    phase19_ete(ck, ete)
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""Datasets of the port: scannet_ft and nerf_synth_ft."""
+"""Datasets of the port: scannet_ft, nerf_synth_ft, dtu and dtu_ft."""
 from __future__ import annotations
 
 
@@ -9,6 +9,11 @@ def create_dataset(opt):
     if opt.dataset_name == "nerf_synth_ft":
         from .nerf_synth_ft_dataset import NerfSynthFtDataset
         return NerfSynthFtDataset(opt)
-    raise NotImplementedError(
-        f"dataset {opt.dataset_name!r} is not ported yet (ROADMAP.md, "
-        "queue 1 item 13); the port reads scannet_ft and nerf_synth_ft")
+    if opt.dataset_name == "dtu":
+        from .dtu_dataset import DtuDataset
+        return DtuDataset(opt)
+    if opt.dataset_name == "dtu_ft":
+        from .dtu_ft_dataset import DtuFtDataset
+        return DtuFtDataset(opt)
+    raise ValueError(f"unknown dataset {opt.dataset_name!r}: the port reads "
+                     "scannet_ft, nerf_synth_ft, dtu and dtu_ft")

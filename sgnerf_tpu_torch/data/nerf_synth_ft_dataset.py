@@ -5,7 +5,8 @@ ScannetFtDataset's item contract: per-view pixel batches, ray directions
 (the poses are blender2opencv-converted, +z forward, so rays are
 intrinsic-based as in the reference's nerf_synth_ft_dataset.py:540), gt
 colours with the RGBA alpha composited over bg_color, the init cloud from
-`--cloud_path` (`load_init_points`).
+`--cloud_path` (`load_init_points`), and the views' alpha masks, intrinsics
+and world-to-camera poses for the MVS bootstrap's visual hull.
 """
 from __future__ import annotations
 
@@ -39,6 +40,24 @@ class NerfSynthFtDataset:
 
     def __len__(self):
         return self.total
+
+    # the views of the MVS bootstrap's visual-hull filter
+    # (runtime/mvs_bootstrap.py alpha_masking; reference train_ft.py:134
+    # reads dataset.alphas/intrinsics/world2cams): the RGBA alpha channel
+    # is the mask of a NeRF-synthetic view
+    @property
+    def alphas(self):
+        return [img[None, :, :, 3] for img in self.imgs]
+
+    @property
+    def view_intrinsics(self):
+        return [self.intrinsic for _ in self.id_list]
+
+    @property
+    def world2cams(self):
+        return [np.linalg.inv(
+            np.asarray(self.poses[i], np.float64)).astype(np.float32)
+            for i in self.id_list]
 
     def _sample_pixels(self, rng):
         s = self.opt.random_sample_size

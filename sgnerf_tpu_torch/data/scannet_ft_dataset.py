@@ -15,7 +15,8 @@ data/scannet_ft_dataset.py).
     frame's `gt_semantic_img`; the frame's colour path and the train
     split's colour paths ride along for BPNet's view selection;
   * `load_init_points`: exported/pcd.ply (+ exported/points.pth colours
-    and labels) with the `ranges` crop;
+    and labels) with the `ranges` crop; `load_init_depth_points`: the
+    depth pngs unprojected (`--load_points 2`);
   * `get_campos_ray`: camera centres and centre-pixel directions.
 
 The same numpy generator state draws the same pixels as the JAX dataset.
@@ -58,6 +59,12 @@ class ScannetFtDataset:
         intr_path = os.path.join(self.data_dir, self.scan,
                                  "exported/intrinsic/intrinsic_color.txt")
         self.intrinsic = np.loadtxt(intr_path).astype(np.float32)[:3, :3]
+        d_path = os.path.join(self.data_dir, self.scan,
+                              "exported/intrinsic/intrinsic_depth.txt")
+        # without a depth intrinsic, the colour one (the same array, so it
+        # takes the img_wh scaling below, as in the JAX package)
+        self.depth_intrinsic = (np.loadtxt(d_path).astype(np.float32)[:3, :3]
+                                if os.path.exists(d_path) else self.intrinsic)
         with Image.open(self._color_path(0)) as im:
             ow, oh = im.size
         self.intrinsic[0, :] *= self.width / ow
@@ -238,6 +245,45 @@ class ScannetFtDataset:
             if labels is not None and len(labels) == len(mask):
                 labels = labels[mask]
         return xyz, feats, labels
+
+    def read_depth(self, path: str) -> np.ndarray:
+        """A depth png in mm -> metres, 0 outside [0.3, 8]."""
+        from PIL import Image
+        with Image.open(path) as im:
+            depth = np.asarray(im, dtype=np.float32) / 1000.0
+        depth[depth > 8.0] = 0
+        depth[depth < 0.3] = 0
+        return depth
+
+    def load_init_depth_points(self, vox_res: int = 0) -> np.ndarray:
+        """Every view's depth map unprojected into one world cloud (the
+        `--load_points 2` bootstrap), each view voxel-downsampled to its
+        centroids when vox_res > 0, then the `ranges` crop."""
+        from ..ops.scatter import voxel_downsample_xyz
+        inv_k = np.linalg.inv(self.depth_intrinsic).T
+        out = []
+        for vid in self.all_id_list:
+            dpath = self._depth_path(vid)
+            if not os.path.exists(dpath):
+                continue
+            depth = self.read_depth(dpath)
+            h, w = depth.shape
+            py, px = np.mgrid[0:h, 0:w].astype(np.float32)
+            cam = np.stack([px * depth, py * depth, depth], -1) @ inv_k
+            cam = cam[cam[..., 2] > 0]
+            c2w = np.loadtxt(self._pose_path(vid)).astype(np.float32)
+            ones = np.ones_like(cam[..., :1])
+            world = (np.concatenate([cam, ones], -1) @ c2w.T)[..., :3]
+            if vox_res > 0:
+                world = voxel_downsample_xyz(world, vox_res)
+            out.append(world)
+        pts = np.concatenate(out, axis=0) if out else np.zeros((0, 3))
+        ranges = np.asarray(getattr(self.opt, "ranges",
+                                    (-100.0,) * 3 + (100.0,) * 3))
+        if ranges[0] > -99.0 and len(pts):
+            mask = np.all((pts >= ranges[:3]) & (pts <= ranges[3:]), axis=-1)
+            pts = pts[mask]
+        return pts.astype(np.float32)
 
     def get_campos_ray(self):
         """(camera centres (V,3), unit centre-pixel directions (V,3)) of the

@@ -5,8 +5,8 @@ The port's copy of what it uses from `sgnerf_tpu/models/checkpoint_io.py`
 .npz of flattened key paths plus a JSON sidecar of counters, readable by
 either package), the reference state-dict import/export and the mode-0
 attribute unpacking, the BPNet converter (`convert_bpnet_checkpoint`) and
-the companion {iter}_semanticEmbedding.pth. The MVS converter comes with
-its slice.
+the companion {iter}_semanticEmbedding.pth, and the official MVSNet
+converter (`convert_official_mvsnet_checkpoint`, the `--pre_d_est` file).
 
 Reference checkpoint layout ({iter}_net_ray_marching.pth, a flat
 state_dict of NeuralPointsRayMarching): neural_points.xyz [N,3],
@@ -358,3 +358,42 @@ def load_semantic_embedding(path: str) -> np.ndarray:
     sem = np.asarray(sem.detach().cpu() if hasattr(sem, "detach") else sem,
                      np.float32)
     return sem[0] if sem.ndim == 3 else sem
+
+
+# -------------------------------------------------- MVSNet .ckpt conversion
+
+def convert_official_mvsnet_checkpoint(path: str, device="cpu"):
+    """The reference's pretrained MVSNet checkpoint (`--pre_d_est`, e.g.
+    MVSNet/model_000014.ckpt, a {'model': state_dict} with `module.`
+    prefixes, mvs_points_model.py:66-74) -> the port's `official` tree:
+    torch's own conv layouts (OIHW, OIDHW, ConvTranspose3d's ci-first), BN
+    weights and statistics, float32 on `device`."""
+    raw = torch.load(path, map_location="cpu", weights_only=False)
+    sd = raw.get("model", raw)
+    flat = {(k[len("module."):] if k.startswith("module.") else k):
+            torch.as_tensor(v).detach().to(torch.float32)
+            for k, v in sd.items()}
+
+    def t(key):
+        return flat[key].clone().to(device)
+
+    def bn(prefix):
+        return {k: t(f"{prefix}.{k}")
+                for k in ("weight", "bias", "running_mean", "running_var")}
+
+    def cbr(prefix):
+        # reference ConvBnReLU: .conv (Conv, no bias) + .bn
+        return {"conv": {"weight": t(f"{prefix}.conv.weight")},
+                "bn": bn(f"{prefix}.bn")}
+
+    feature = {f"conv{i}": cbr(f"feature.conv{i}") for i in range(7)}
+    feature["feature"] = {"weight": t("feature.feature.weight"),
+                          "bias": t("feature.feature.bias")}
+    cr = "cost_regularization"
+    cost = {f"conv{i}": cbr(f"{cr}.conv{i}") for i in range(7)}
+    for i in (7, 9, 11):
+        cost[f"conv{i}"] = {"0": {"weight": t(f"{cr}.conv{i}.0.weight")},
+                            "1": bn(f"{cr}.conv{i}.1")}
+    cost["prob"] = {"weight": t(f"{cr}.prob.weight"),
+                    "bias": t(f"{cr}.prob.bias")}
+    return {"feature": feature, "cost_regularization": cost}

@@ -4,7 +4,8 @@ Both sides hold the reference's tree {"block1": [{"w": (in, out), "b":
 (out,)}, ...], "alpha_branch": [...], "color_branch": [...]}: the port keeps
 the (in, out) layout of x @ w (no nn.Linear, whose weight is (out, in)), so
 a checkpoint maps across without a transpose. BPNet's tree crosses with
-its 2D conv weights transposed (`bpnet_params_from_jax`).
+its 2D conv weights transposed (`bpnet_params_from_jax`), the MVS nets'
+with their 2D and 3D conv weights transposed (`mvs_params_from_jax`).
 """
 from __future__ import annotations
 
@@ -55,3 +56,37 @@ def bpnet_params_to_jax(tree: Any) -> Any:
     a = tree.detach().cpu().numpy()
     return np.ascontiguousarray(a.transpose(2, 3, 1, 0)) if a.ndim == 4 \
         else a
+
+
+def mvs_params_from_jax(tree: Any, device="cpu") -> Any:
+    """The JAX MVS tree {FeatureNet, CostRegNet, official, premlp} (numpy
+    or jax leaves) -> the port's: float32 tensors on `device`, 2D conv
+    weights HWIO -> OIHW, 3D DHWIO -> OIDHW. The transposed 3D convs take
+    the same permutation: JAX holds them as (kd,kh,kw,co,ci) for its
+    transpose_kernel form, which becomes ConvTranspose3d's (ci,co,kd,kh,kw).
+    premlp's (in, out) and the BN leaves (statistics included) cross as
+    they are."""
+    if isinstance(tree, dict):
+        return {k: mvs_params_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [mvs_params_from_jax(v, device) for v in tree]
+    a = np.asarray(tree, np.float32)
+    if a.ndim == 4:
+        a = a.transpose(3, 2, 0, 1)
+    elif a.ndim == 5:
+        a = a.transpose(4, 3, 0, 1, 2)
+    return torch.tensor(np.ascontiguousarray(a), device=device)
+
+
+def mvs_params_to_jax(tree: Any) -> Any:
+    """Inverse of mvs_params_from_jax: numpy arrays in the JAX layout."""
+    if isinstance(tree, dict):
+        return {k: mvs_params_to_jax(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [mvs_params_to_jax(v) for v in tree]
+    a = tree.detach().cpu().numpy()
+    if a.ndim == 4:
+        a = a.transpose(2, 3, 1, 0)
+    elif a.ndim == 5:
+        a = a.transpose(2, 3, 4, 1, 0)
+    return np.ascontiguousarray(a)

@@ -182,6 +182,16 @@ def loss_and_grads(state: TrainState, grid, cfg: RenderConfig,
         else:
             out = render_rays(params, cloud, grid, cfg,
                               pixel_label=batch.get("pixel_label"), **cam)
+        if "bg_ray" in batch:
+            # --bgmodel plane (reference fill_invalid,
+            # neural_points_volumetric_model.py:175-177): the per-ray plane
+            # background replaces the constant one through the background
+            # transmission
+            bgc = batch.get("bg_color")
+            bgc = 0.0 if bgc is None else bgc
+            out = dict(out, coarse_raycolor=(
+                out["coarse_raycolor"]
+                + out["coarse_is_background"] * (batch["bg_ray"] - bgc)))
         if "ray_depth_mask" in batch:
             out["ray_depth_mask"] = batch["ray_depth_mask"]
         total, losses = compute_losses(
@@ -219,7 +229,9 @@ def train_step(state: TrainState, grid, cfg: RenderConfig, tcfg: TrainConfig,
     gt_depth/gt_mask/ray_depth_mask (B,R) and pixel_label (B,R) int (the
     semantic-guided query's ray labels). The render noise comes from
     `noise` (render_rays' argument) or is drawn from `generator`; `pspec`
-    routes the forward through the perspective-space path. Returns
+    routes the forward through the perspective-space path. A batch's
+    `bg_ray` (B,R,3), --bgmodel plane's per-ray background, replaces
+    bg_color through the background transmission. Returns
     (state, losses): detached 0-d tensors, not synchronised."""
     losses, g_net, g_pts = loss_and_grads(state, grid, cfg, tcfg, batch,
                                           noise=noise, generator=generator,

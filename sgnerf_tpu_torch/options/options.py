@@ -257,10 +257,6 @@ def _unsupported(flag: str, item: str):
 def _check_slice(opt):
     """Refuse the flags of modules the port does not have yet (both CLIs
     call it at startup; configs_from_opt too)."""
-    if str(getattr(opt, "bgmodel", "no")).endswith("plane"):
-        _unsupported("--bgmodel plane", "item 13")
-    if getattr(opt, "dataset_name", None) in ("dtu", "dtu_ft"):
-        _unsupported(f"--dataset_name {opt.dataset_name}", "item 13")
     if int(getattr(opt, "scene_shards", 0) or 0) > 1:
         _unsupported("--scene_shards", "item 19")
     if int(getattr(opt, "ray_shards", 0) or 0) not in (0, 1):

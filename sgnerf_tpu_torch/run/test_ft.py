@@ -4,7 +4,8 @@
 
 Counterpart of run/test_ft.py (reference run/test_ft.py): resumes the
 checkpoint, renders every `test_num_step`-th test view, prints per-image
-PSNR lines, saves the images and writes scores.txt. Runs on
+PSNR lines, saves the images and writes scores.txt; `--bgmodel plane`
+puts each frame's plane background behind the render. Runs on
 cuda:<--gpu_ids>; `--gpu_ids -1` runs on the CPU with the kernels' plain
 versions.
 """
@@ -16,6 +17,7 @@ import time
 import numpy as np
 
 from ..data import create_dataset
+from ..models.background import plane_bg_ray
 from ..options.options import TestOptions, _check_slice
 from ..runtime.scene_model import SceneModel
 from ..utils.metrics import psnr
@@ -38,11 +40,21 @@ def main(args=None):
 
     subdir = f"test_{model.step}"
     out_dir = os.path.join(visualizer.image_dir, subdir)
+    # --bgmodel *plane: each frame's plane background from the MVS source
+    # views (reference test_ft.py:340-344)
+    init_views = cloud_xyz = None
+    if str(opt.bgmodel).endswith("plane") and hasattr(dataset,
+                                                      "get_init_item"):
+        init_views = dataset.get_init_item(0)
+        cloud_xyz = model.cloud.xyz[model.cloud.active].cpu().numpy()
     psnrs = []
     for i in list(range(len(dataset)))[::max(opt.test_num_step, 1)]:
-        item = dataset.get_item(i)
+        item = dataset.get_item(i, full_img=True)
+        bg_image = (plane_bg_ray(item, init_views, cloud_xyz,
+                                 device=model.device)
+                    if init_views is not None else None)
         t0 = time.time()
-        col = model.render_image(item)
+        col = model.render_image(item, bg_image=bg_image)
         pix = item["pixel_idx"]
         W = int(pix[:, 0].max() - pix[:, 0].min() + 1)
         Hh = len(col) // W

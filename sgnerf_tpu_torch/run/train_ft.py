@@ -6,8 +6,13 @@ Counterpart of run/train_ft.py (reference run/train_ft.py):
   1. parse the flags, create the dataset and the SceneModel (on
      cuda:<--gpu_ids>; `--gpu_ids -1` is the CPU with the kernels' plain
      versions);
-  2. resume from a checkpoint, or load the scene's init points, voxel-
-     downsample them and initialise the per-point attributes;
+  2. resume from a checkpoint, or bootstrap the cloud: the scene's init
+     points (`--load_points 1`), voxel-downsampled, with initialised
+     per-point attributes; the dataset's depth maps unprojected
+     (`--load_points 2`); or the MVS bootstrap (`--load_points 0`,
+     runtime/mvs_bootstrap.py: depths, cross-view filtering, FeatureNet
+     embeddings); with `--bgmodel plane`, each train frame's plane
+     background, which the batches index;
   3. train on random-ray batches from a background item prefetcher; print,
      prune, save and test on their schedules (`--steps_per_dispatch` G runs
      G steps between host events); every `--prob_freq` steps, after the
@@ -21,9 +26,6 @@ Counterpart of run/train_ft.py (reference run/train_ft.py):
   4. final save, reference `.pth` export and test.
 `--profile_dir` writes a torch.profiler trace of steps [profile_start,
 profile_start + profile_steps).
-
-Not ported yet, refused at startup: the MVS bootstrap (`--load_points 0`,
-item 14), `--bgmodel plane` (item 13).
 """
 from __future__ import annotations
 
@@ -37,6 +39,8 @@ import numpy as np
 import torch
 
 from ..data import create_dataset
+from ..models.background import create_all_bg, plane_bg_ray
+from ..models.point_cloud import make_point_cloud
 from ..options.options import TrainOptions, _check_slice
 from ..runtime.growing import probe_and_grow
 from ..runtime.scene_model import SceneModel, batch_to_device
@@ -98,10 +102,18 @@ def run_test(model, dataset, visualizer, total_steps, num_images=None,
         ids = ids[:num_images]
     psnrs = []
     subdir = f"test_{total_steps}"
+    init_views = cloud_xyz = None
+    if str(model.opt.bgmodel).endswith("plane") and hasattr(
+            dataset, "get_init_item"):
+        init_views = dataset.get_init_item(0)
+        cloud_xyz = model.cloud.xyz[model.cloud.active].cpu().numpy()
     for i in ids:
         item = dataset.get_item(i, full_img=True)
+        bg_image = (plane_bg_ray(item, init_views, cloud_xyz,
+                                 device=model.device)
+                    if init_views is not None else None)
         t0 = time.time()
-        col = model.render_image(item)
+        col = model.render_image(item, bg_image=bg_image)
         npx = item["pixel_idx"]
         W = int(npx[:, 0].max() - npx[:, 0].min() + 1)
         H = len(col) // W
@@ -138,13 +150,19 @@ def main(args=None):
     if resume is not None:
         model.load_checkpoint(resume)
     elif opt.load_points < 1:
-        raise NotImplementedError(
-            "the MVS point bootstrap (--load_points 0) is not ported yet "
-            "(ROADMAP.md, queue 1 item 14)")
+        # MVS depths -> cross-view filter -> embeddings (reference
+        # gen_points_filter_embeddings, run/train_ft.py:101-170)
+        from ..runtime.mvs_bootstrap import gen_points_filter_embeddings
+        xyz, emb, color, dirs, conf = gen_points_filter_embeddings(
+            dataset, opt, model.device)
+        print(f"MVS bootstrap produced {len(xyz)} points")
+        model._finish_setup(None, make_point_cloud(
+            xyz, emb, conf=conf, dir=dirs, color=color,
+            capacity=model._capacity_for(len(xyz)), device=model.device))
     elif opt.load_points == 2:
-        raise NotImplementedError(
-            "the depth-unprojection bootstrap (--load_points 2) is not "
-            "ported yet (ROADMAP.md, queue 1 item 14)")
+        # the dataset's depth maps unprojected (run/train_ft.py:668)
+        xyz = dataset.load_init_depth_points(vox_res=100)
+        model.setup_from_points(xyz, None, None, dataset=dataset)
     else:
         xyz, feats, labels = dataset.load_init_points()
         model.setup_from_points(xyz, feats, labels, dataset=dataset)
@@ -153,7 +171,10 @@ def main(args=None):
                 if int(opt.predict_semantic) else None)
 
     total_steps = int(model.step)
-    maximum_step = opt.maximum_step or 100000
+    # --maximum_step 0 trains no step (the dtu_test_inf scripts render at
+    # once); unset, 100000
+    maximum_step = (100000 if opt.maximum_step is None
+                    else int(opt.maximum_step))
     rng = np.random.default_rng(1)
     grow_rng = np.random.default_rng(2)     # the probe frames' seeds
     print(f"training from step {total_steps} to {maximum_step}")
@@ -172,10 +193,26 @@ def main(args=None):
                 nxt = min(nxt, (step // freq + 1) * freq)
         return nxt
 
+    # --bgmodel *plane: a full-frame plane background per train frame
+    # (reference run/train_ft.py:559-586); each batch indexes its pixels
+    bg_all = None
+    if str(opt.bgmodel).endswith("plane"):
+        bg_all = create_all_bg(
+            dataset, model.cloud.xyz[model.cloud.active].cpu().numpy(),
+            device=model.device)
+        if bg_all is not None:
+            print(f"[bgmodel] plane backgrounds for {len(bg_all)} frames")
+
     def get_item():
         if prefetcher is not None:
-            return prefetcher.next()
-        return dataset.get_item(int(rng.integers(0, len(dataset))), rng=rng)
+            item = prefetcher.next()
+        else:
+            item = dataset.get_item(int(rng.integers(0, len(dataset))),
+                                    rng=rng)
+        if bg_all is not None:
+            px = np.asarray(item["pixel_idx"]).astype(np.int64)
+            item["bg_ray"] = bg_all[int(item["id"])][px[:, 1], px[:, 0]]
+        return item
 
     try:
         while total_steps < maximum_step:

@@ -70,6 +70,8 @@ def batch_to_device(item: Dict, device) -> Dict[str, torch.Tensor]:
          "camrotc2w": t(item["camrotc2w"])[None],
          "near": float(item["near"]), "far": float(item["far"]),
          "bg_color": t(item["bg_color"]), "gt_image": t(item["gt_image"])[None]}
+    if "bg_ray" in item:         # --bgmodel plane: the per-ray background
+        b["bg_ray"] = t(item["bg_ray"])[None]
     if "pixel_label" in item:
         b["pixel_label"] = torch.as_tensor(
             np.asarray(item["pixel_label"], np.int32), device=device)[None]
@@ -401,11 +403,15 @@ class SceneModel:
     # --------------------------------------------------------------- rendering
 
     @torch.inference_mode()
-    def render_image(self, item: Dict, chunk_rays: int = 9216) -> np.ndarray:
+    def render_image(self, item: Dict, chunk_rays: int = 9216,
+                     bg_image=None) -> np.ndarray:
         """Chunked full-frame render -> (R, 3) colours of item["raydir"]:
         a plain loop over chunks of `chunk_rays` rays (the last one padded).
         The reference's attr_dedup overflow re-render has nothing to do
-        here: the plain attribute gather has no distinct-id cap."""
+        here: the plain attribute gather has no distinct-id cap. With
+        `bg_image` (R,3), the per-ray plane background of --bgmodel plane
+        replaces the constant one through each ray's background
+        transmission: colour + bgT * (bg_image - bg_color)."""
         dev = self.device
         self.ensure_pspec(item)
         raydir = torch.as_tensor(np.asarray(item["raydir"], np.float32),
@@ -422,7 +428,7 @@ class SceneModel:
                              device=dev)
         near, far = float(item["near"]), float(item["far"])
         table = self.table
-        cols = []
+        cols, bgts = [], []
         cam = dict(campos=campos, camrotc2w=rot, near=near, far=far,
                    bg_color=bg, table=table)
         if self.perspective:
@@ -439,4 +445,11 @@ class SceneModel:
                 out = render_rays(self.params, self.cloud, self.grid,
                                   self.cfg, raydir=rd, **cam)
             cols.append(out["coarse_raycolor"][0])
-        return torch.cat(cols)[:R].cpu().numpy()
+            bgts.append(out["coarse_is_background"][0])
+        col = torch.cat(cols)[:R]
+        if bg_image is not None:
+            bgt = torch.cat(bgts)[:R]
+            col = col + bgt * (torch.tensor(
+                np.asarray(bg_image, np.float32), device=dev).reshape(-1, 3)
+                - bg)
+        return col.cpu().numpy()

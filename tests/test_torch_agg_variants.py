@@ -332,20 +332,23 @@ DTU_SCRIPTS = sorted(
 
 
 def _port_startup(path):
-    """What the port's train_ft / test_ft check before any work on the
-    script's flags, and its configs."""
-    from sgnerf_tpu_torch.data import create_dataset
+    """What the port's entry point for the script (run/train.py's trainer,
+    train_ft or test_ft) checks before any work on its flags, and its
+    configs."""
     from sgnerf_tpu_torch.options import TestOptions, TrainOptions
     from sgnerf_tpu_torch.options.options import (_check_slice,
                                                   configs_from_opt)
+    from sgnerf_tpu_torch.run import train as ff_train
     from sgnerf_tpu_torch.run.train_ft import check_flags
     args = _script_args(path)
-    train = "run/test_ft.py" not in _script_text(path)
+    text = _script_text(path)
+    train = "run/test_ft.py" not in text
     opt = (TrainOptions() if train else TestOptions()).parse(args)
-    (check_flags if train else _check_slice)(opt)
-    if opt.dataset_name != "scannet_ft":
-        create_dataset(opt)
-    return configs_from_opt(opt, device="cpu")
+    if "run/train.py" in text:
+        ff_train.check_flags(opt)
+    else:
+        (check_flags if train else _check_slice)(opt)
+    return configs_from_opt(opt, device="cpu"), opt
 
 
 def test_the_scannet_scripts_are_found():
@@ -356,23 +359,33 @@ def test_the_scannet_scripts_are_found():
 @pytest.mark.parametrize("path", SCANNET_SCRIPTS,
                          ids=[os.path.basename(p) for p in SCANNET_SCRIPTS])
 def test_port_accepts_every_scannet_script(path):
-    cfg = _port_startup(path)[0]
+    cfg = _port_startup(path)[0][0]
     assert cfg.agg.agg_intrp_order == 2
 
 
 def test_block3_scripts_turn_the_fused_kernels_off():
     path = os.path.join(REPO, "dev_scripts", "myexp_scannet_colmap",
                         "scene0000_00.sh")
-    agg = _port_startup(path)[0].agg
+    agg = _port_startup(path)[0][0].agg
     assert agg.shading_feature_mlp_layer3 == 2 and not tagg.use_fused(
         __import__("dataclasses").replace(agg, fused_mlp="cuda"))
 
 
 @pytest.mark.parametrize("path", DTU_SCRIPTS,
                          ids=[os.path.basename(p) for p in DTU_SCRIPTS])
-def test_dtu_scripts_stay_refused(path):
-    """The DTU scripts need the plane background and the DTU datasets
-    (item 13), or the MVS bootstrap and run/train.py (item 14): the port
-    refuses them at startup, naming the item."""
-    with pytest.raises(NotImplementedError, match="item 1[34]"):
-        _port_startup(path)
+def test_port_accepts_every_dtu_script(path):
+    """The DTU scripts pass the port's startup checks: the dtu_test_inf
+    family through train_ft (dtu_ft, the plane background, order 1, the
+    MVS bootstrap), the ete family through run/train.py (the feed-forward
+    trainer on the dtu dataset)."""
+    (cfg, _, grid_kwargs), opt = _port_startup(path)
+    if "dtu_test_inf" in path:
+        assert opt.dataset_name == "dtu_ft" and opt.bgmodel == "plane"
+        assert cfg.agg.agg_intrp_order == 1 and opt.load_points == 0
+        assert opt.maximum_step == 0
+    else:
+        assert opt.dataset_name == "dtu" and opt.feedforward == 1
+        assert cfg.agg.agg_intrp_order == 2 and grid_kwargs["ranges"]
+    # both shade un-fused (block3) and query with the exact top-k
+    assert cfg.agg.shading_feature_mlp_layer3 == 2
+    assert cfg.knn_mode == "exact" and cfg.gather_dtype == "float32"

@@ -1,4 +1,6 @@
-"""Kernels K1-K7 against their plain PyTorch versions on the card.
+"""Kernels K1-K7 against their plain PyTorch versions on the card, and
+the MVS nets (MVSNet's depth inference, one feed-forward step) on the card
+against the port's CPU forward.
 
 Marked `cuda`: each test skips where torch.cuda.is_available() is false
 (CUDA kernels have no CPU mode). On a machine with a card:
@@ -1025,3 +1027,123 @@ def test_perspective_chunk_on_the_card_matches_the_cpu(dev, train):
     assert b["ray_mask"].float().mean() > 0.3
     torch.testing.assert_close(a["coarse_raycolor"], b["coarse_raycolor"],
                                atol=1e-4, rtol=0)
+
+
+def _mvs_views(V=3, H=64, W=80, seed=4):
+    rng = np.random.default_rng(seed)
+    imgs = rng.uniform(0, 1, (V, H, W, 3)).astype(np.float32)
+    projs = np.stack([np.eye(4, dtype=np.float32)[:3] for _ in range(V)])
+    for v in range(1, V):
+        th = 0.02 * v
+        projs[v, :3, :3] = [[np.cos(th), -np.sin(th), 0],
+                            [np.sin(th), np.cos(th), 0], [0, 0, 1]]
+        projs[v, :3, 3] = [0.3 * v, -0.15 * v, 0.01]
+    return imgs, projs
+
+
+def test_predict_depth_on_the_card_matches_the_cpu(dev):
+    """MVSNet's depth inference (IEEE f32 convolutions, TF32 off inside the
+    nets whatever the process set) on the card against the port's CPU
+    forward: depth within 1e-4 (far - near), probability within 1e-4,
+    confidence within 1e-4 where the truncated index agrees."""
+    from sgnerf_tpu_torch.models.mvs import MVSConfig, MvsPointsModel
+    imgs, projs = _mvs_views()
+    D, near, far = 32, 1.0, 3.0
+    dv = torch.linspace(near, far, D)
+    cpu = MvsPointsModel(MVSConfig(), seed=3)
+    card = MvsPointsModel(MVSConfig(), params=_to(cpu.params, dev))
+    a = cpu.predict_depth(torch.from_numpy(imgs), torch.from_numpy(projs), dv)
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True      # what the nets must undo
+    try:
+        b = card.predict_depth(torch.from_numpy(imgs).to(dev),
+                               torch.from_numpy(projs).to(dev), dv.to(dev))
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+    b = [t.cpu() for t in b]
+    assert torch.allclose(b[0], a[0], rtol=0, atol=1e-4 * (far - near))
+    assert torch.allclose(b[2], a[2], rtol=0, atol=1e-4)
+    ar = torch.arange(D, dtype=torch.float32)[:, None, None]
+    same = ((a[2] * ar).sum(0).int() == (b[2] * ar).sum(0).int())
+    assert same.float().mean() >= 0.99
+    assert torch.allclose(b[1][same], a[1][same], rtol=0, atol=1e-4)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def test_feedforward_step_on_the_card_matches_the_cpu(dev):
+    """One feed-forward step (jitter 0) on the card against the same step
+    on the CPU: the loss within 1e-5 relative, every leaf of both groups
+    within 1e-5 of its largest magnitude but where the CPU's first Adam
+    step is shorter than 0.999 lr (a gradient within ~1e-5 of zero)."""
+    from sgnerf_tpu_torch.models import feedforward as ff
+    from sgnerf_tpu_torch.models.aggregator import (AggregatorConfig,
+                                                    init_aggregator_params)
+    from sgnerf_tpu_torch.models.mvs import MVSConfig, init_mvs_params
+    from sgnerf_tpu_torch.models.renderer import RenderConfig
+    from sgnerf_tpu_torch.ops.camera import get_dtu_raydir
+    from sgnerf_tpu_torch.ops.grid import compute_grid_spec
+    rng = np.random.default_rng(0)
+    H, W, V, lr = 24, 32, 2, 5e-4
+    intr = np.array([[24.0, 0, W / 2], [0, 24.0, H / 2], [0, 0, 1]],
+                    np.float32)
+    c2ws = np.stack([np.eye(4, dtype=np.float32)] * V)
+    c2ws[1, 0, 3] = 0.1
+    gy, gx = np.mgrid[0:H, 0:W]
+    px, py = np.meshgrid(np.arange(W, dtype=np.float32),
+                         np.arange(H, dtype=np.float32))
+    pix = np.stack([px, py], -1).reshape(-1, 2)[rng.integers(0, H * W, 128)]
+    batch = {
+        "images": rng.uniform(0, 1, (V, H, W, 3)).astype(np.float32),
+        "c2ws": c2ws,
+        "w2cs": np.stack([np.linalg.inv(c) for c in c2ws]).astype(
+            np.float32),
+        "intrinsics": np.stack([intr] * V), "depth_intr": intr,
+        "near_far": np.asarray([0.5, 4.0], np.float32),
+        "gt_depth": (2.0 + 0.2 * np.sin(gx / 5.0) * np.cos(gy / 4.0)
+                     ).astype(np.float32),
+        "campos": np.zeros((1, 3), np.float32),
+        "raydir": get_dtu_raydir(torch.from_numpy(pix),
+                                 torch.from_numpy(intr), torch.eye(3),
+                                 True).numpy()[None],
+        "camrotc2w": np.eye(3, dtype=np.float32)[None],
+        "bg_color": np.ones(3, np.float32),
+        "gt_image": rng.uniform(0, 1, (1, 128, 3)).astype(np.float32)}
+    cfg = RenderConfig(agg=AggregatorConfig(), z_depth_dim=48, SR=8, K=4,
+                       vsize=(0.1,) * 3, jitter=0.0)
+    spec = compute_grid_spec(np.array([[-3, -3, -0.5], [3, 3, 4.0]]),
+                             vsize=[0.1] * 3, vscale=[1, 1, 1],
+                             kernel_size=[3, 3, 3], max_o=8192, P=8)
+    params = {"agg": init_aggregator_params(0, cfg.agg),
+              "mvs": init_mvs_params(1, MVSConfig())}
+    init = _to(params, "cpu")
+    init = {g: [t.clone() for t in ff.tree_leaves(init[g])] for g in init}
+    out = {}
+    for d in ("cpu", dev):
+        p = _to(params, d)           # a copy on each device
+        if str(d) == "cpu":
+            p = {g: _to(_to(p[g], dev), "cpu") for g in p}
+        st = ff.init_opt_states(p)
+        fn = ff.make_feedforward_step(MVSConfig(), cfg, spec, lr, lr)
+        b = {k: torch.from_numpy(np.asarray(v)).to(d)
+             for k, v in batch.items()}
+        b.update(near=0.5, far=4.0)
+        p, st, losses = fn(p, st, b, 0)
+        out[str(d)] = ({g: [t.cpu() for t in ff.tree_leaves(p[g])]
+                        for g in p}, {k: v.cpu() for k, v in losses.items()})
+    (pc, lc), (pg, lg) = out["cpu"], out[str(dev)]
+    for k in lc:
+        assert torch.allclose(lg[k], lc[k], rtol=1e-5, atol=0), k
+    for g in ("agg", "mvs"):
+        for a, c, i in zip(pg[g], pc[g], init[g]):
+            off = (a - c).abs() > 1e-5 * c.abs().max()
+            step = (c - i).abs()
+            soft = (step > 0) & (step < 0.999 * lr)
+            assert not (off & ~soft).any(), g
+            assert off.sum() <= max(1, int(1e-4 * off.numel())), g

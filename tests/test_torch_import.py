@@ -26,7 +26,10 @@ for want in ("ops.pallas_gather", "runtime.growing", "dev.probe_gather",
              "models.bpnet.unet2d", "models.bpnet.unet3d",
              "models.bpnet.linking", "runtime.semantic", "ops.query_pers",
              "utils.spherical", "data.load_blender", "data.data_utils",
-             "data.nerf_synth_ft_dataset"):
+             "data.nerf_synth_ft_dataset", "data.dtu_dataset",
+             "data.dtu_ft_dataset", "ops.scatter", "models.background",
+             "models.mvs_filter", "models.feedforward",
+             "runtime.mvs_bootstrap", "run.train"):
     assert "sgnerf_tpu_torch." + want in names, want
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "triton", "sgnerf_tpu",
@@ -152,9 +155,9 @@ def test_scene_model_device_comes_from_gpu_ids():
 
 @pytest.mark.parametrize("flags", [
     ["--gather_dtype", "int8"],
-    ["--bgmodel", "plane"],
-    ["--dataset_name", "dtu_ft"],
-    ["--dataset_name", "dtu"],
+    ["--gather_dtype", "int8", "--bgmodel", "plane"],
+    ["--scene_shards", "2", "--dataset_name", "dtu_ft"],
+    ["--ray_shards", "2", "--dataset_name", "dtu"],
     ["--knn_mode", "approx", "--cache_dtype", "float32"],
     ["--scene_shards", "2"],
     ["--ray_shards", "4"],

@@ -379,6 +379,24 @@ def test_blender_dataset_matches_jax(lego, tmp_path):
     assert xa.shape == (200, 3)
 
 
+
+def test_blender_hull_views_match_jax(lego, tmp_path):
+    """The views the MVS bootstrap's visual hull reads: alpha masks,
+    intrinsics and world-to-camera poses, bit-equal."""
+    from sgnerf_tpu.data import create_dataset as jcreate
+    from sgnerf_tpu.options.options import TrainOptions as JOpts
+    from sgnerf_tpu_torch.data import create_dataset
+    from sgnerf_tpu_torch.options import TrainOptions
+    flags = _blender_flags(lego, tmp_path)
+    jopt, opt = JOpts().parse(flags), TrainOptions().parse(flags)
+    jopt.split = opt.split = "train"
+    jd, td = jcreate(jopt), create_dataset(opt)
+    for k in ("alphas", "view_intrinsics", "world2cams"):
+        a, b = getattr(td, k), getattr(jd, k)
+        assert len(a) == len(b) == len(td)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y, err_msg=k)
+
 def test_train_ft_then_test_ft_at_wcoord_query_0(lego, tmp_path):
     """train_ft then test_ft on the NeRF-synthetic scene through the
     perspective path, with block3 on colour and dir (the point colours

@@ -428,7 +428,7 @@ def test_train_ft_cli_runs_and_writes_checkpoints(scans, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--scene_shards", "2"],
-                                   ["--bgmodel", "plane"],
+                                   ["--ray_shards", "2"],
                                    ["--gather_dtype", "int8"],
                                    ["--gather_dtype", "bfloat16"]])
 def test_train_ft_refuses_unported_flags_at_startup(scans, tmp_path, flags):
