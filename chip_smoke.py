@@ -164,7 +164,27 @@ fine-tune train step (the flags of scene0113_00_default.sh). Phases:
      script dtu_dgt_d012_img0123_conf_color_dir_agg2.sh through
      run/train.py: 10 steps (n_points, the median step, one step under
      torch.profiler), saves at 5 and 10, a resume from 10_feedforward.pkl,
-     FeatureNet's first weight moved. Neither DTU path launches a kernel.
+     FeatureNet's first weight moved. Neither DTU path launches a kernel;
+ 20. the tools at full width on the phase-3 room scan and phase 8's
+     export (views 0 and 3): the editor crops a box of the +x wall out of
+     the scene (crop_point_cloud) and saves both parts as .pth; the
+     editing CLI puts the box back rotated 30 deg about z and moved,
+     and renders the 2 test frames with test_default.sh's flags and the
+     counters reset just before: K1 and K2 once a chunk and nothing else;
+     on the chunk through the moved box the per-neighbour rotation table
+     (MiB, the neighbours in the moved part), its gather and the offsets'
+     rotation timed alone, K2 against its plain version (K2_TOL); 512
+     rays about the box, kernel path vs un-fused path (RENDER_ATOL); the
+     warm edit frame against the default scene's on the same camera; the
+     edited scene's .pth round trip (export with a dense per-point Rw2c,
+     the np.unique that factors it, the load; the reloaded scene renders
+     the 512 rays as the edited one); test_edit on that .pth (1 frame, the
+     predicted-label cloud) and result's IoU against the room's labelled
+     surfaces; render_vid (4 frames of the SLERP path); one viewer render
+     through its HTTP server; vis_grow_train (1 probe frame, K2 on 2304-ray
+     chunks); evaluate with LPIPS on the card on weights the phase writes,
+     alex and vgg against the CPU (LPIPS_TOL). Every time is logged with
+     the card's name and power limit.
 
 Any failure raises and the script exits non-zero before its last line.
 The last line is {"ok": true, "device": {...}}; the line before it holds
@@ -185,6 +205,7 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+SMI = "card not read"          # nvidia-smi's name and power limit (phase 1)
 N_POINTS = 4_200_000
 W_IMG, H_IMG, FOCAL = 640, 480, 580.0
 # K2 tolerance vs its plain version on the card: the kernel sums the
@@ -476,16 +497,18 @@ def time_grid_build(model):
     return dt
 
 
-def capture_first_call(module, name, store, on_call=None):
-    """Wrap module.<name> so its first call's arguments land in `store`
-    (and every call's go to `on_call`, when given); the call goes through
-    to the wrapped function unchanged. Returns the original, to be put
-    back."""
+def capture_first_call(module, name, store, on_call=None, call=0):
+    """Wrap module.<name> so the arguments of its call number `call` (from
+    0; the first by default) land in store[name] (and every call's go to
+    `on_call`, when given); the call goes through to the wrapped function
+    unchanged. Returns the original, to be put back."""
     fn = getattr(module, name)
+    count = [0]
 
     def wrapped(*args, **kw):
-        if name not in store:
+        if count[0] == call:
             store[name] = (args, kw)
+        count[0] += 1
         if on_call is not None:
             on_call(*args, **kw)
         return fn(*args, **kw)
@@ -591,7 +614,8 @@ def main():
 
     for d in ("smoke", "smoke_ft", "smoke_scans", "smoke_grow", "smoke_sem",
               "smoke_sem_scans", "smoke_b3", "smoke_nerf",
-              "smoke_pers", "smoke_dtu", "smoke_dtu_data"):  # its outputs
+              "smoke_pers", "smoke_dtu", "smoke_dtu_data",
+              "smoke_edit"):                                 # its outputs
         shutil.rmtree(os.path.join(REPO, "build", d), ignore_errors=True)
 
     t_last = [time.perf_counter()]
@@ -602,9 +626,11 @@ def main():
         t_last[0] = now
 
     # ---- 1. the card
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
+    global SMI
+    SMI = smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
@@ -752,6 +778,10 @@ def main():
     # ---- 19. the DTU path: MVS nets, bootstrap, plane, feed-forward
     phase19_dtu()
     stamp("phase 19")
+
+    # ---- 20. the tools: editing, test_edit, render_vid, viewer, evaluate
+    phase20_tools()
+    stamp("phase 20")
 
     log(json.dumps({"kernels": [records[k] for k in sorted(records)]}))
     log(json.dumps({"ok": True, "device": {
@@ -1212,15 +1242,21 @@ def phase12_k4_k6(paths):
         M, rows = feat.shape[0], feat.shape[0] * feat.shape[1]
         weights = [t for l_ in block1 + alpha + color for t in l_.values()]
         out_bytes = M * 16 if key == "K4" else M // kwargs["SR"] * 16
-        # block1 on the tensor cores (K2's body), the colour head in f32
-        flops, peaks, unit = block1_ops(block1, rows,
-                                        bool(kwargs["bf16"]))
-        flops[1] += 2.0 * M * mlp_fma_per_row(color)
-        bound_ms, bound_by = bound(
-            nbytes(*args[:-3], *weights) + out_bytes, flops, peaks)
-        log(f"phase 12: {key} bound {bound_ms:.3f} ms ({bound_by}: "
-            f"{flops[0] / 1e9:.0f} GFLOP on the {unit} cores + "
-            f"{flops[1] / 1e9:.1f} GFLOP in f32); reruns bit-identical")
+        # block1 on the tensor cores (K2's body), the colour head in f32;
+        # each mode's bound as K2's (phase 5), the main mode's recorded
+        bounds = {}
+        for bf16 in (True, False):
+            flops, peaks, unit = block1_ops(block1, rows, bf16)
+            flops[1] += 2.0 * M * mlp_fma_per_row(color)
+            bounds[bf16] = bound(
+                nbytes(*args[:-3], *weights) + out_bytes, flops, peaks)
+            log(f"phase 12: {key} bf16={bf16} bound {bounds[bf16][0]:.3f} "
+                f"ms ({bounds[bf16][1]}: {flops[0] / 1e9:.0f} GFLOP on the "
+                f"{unit} cores + {flops[1] / 1e9:.1f} GFLOP in f32); kernel "
+                f"{res[bf16][1]:.3f} ms = "
+                f"{bounds[bf16][0] / res[bf16][1]:.1%} of it")
+        bound_ms, bound_by = bounds[bool(kwargs["bf16"])]
+        log(f"phase 12: {key} reruns bit-identical")
         records[key] = {
             "name": entry, "route": "cuda",
             "source": "sgnerf_tpu_torch/csrc/fused_agg_color.cu",
@@ -3326,6 +3362,433 @@ def phase19_dtu(dev="cuda", inf_over=None, ete_over=None):
         "--gpu_ids": ["0" if dev == "cuda" else "-1"],
         "--resume_dir": [os.path.join(ck, "no_init")], **(ete_over or {})})
     phase19_ete(ck, ete)
+
+
+# ---------------------------------------------------------------- phase 20
+
+# the edit: the points of a box on the +x wall, cropped out of the room scan
+# and put back rotated 30 deg about z and moved inward, in view of the
+# phase-8 export's views 0 and 3 (yaw 0 and pi)
+EDIT_BOX = (np.array([1.9, -0.8, -0.4], np.float32),
+            np.array([2.7, 0.8, 0.6], np.float32))
+EDIT_DEG = 30.0
+EDIT_SHIFT = (-0.6, 0.6, 0.0)
+EDIT_VIEWS = ["0", "3"]
+VID_FRAMES = 4
+# LPIPS on the card (IEEE f32 convolutions) vs the CPU, random weights
+LPIPS_TOL = 1e-4
+
+
+def edit_transform():
+    a = np.deg2rad(EDIT_DEG)
+    T = np.eye(4)
+    T[:3, :3] = [[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                 [0, 0, 1]]
+    T[:3, 3] = EDIT_SHIFT
+    return T
+
+
+def write_edit_parts(parts):
+    """The editor's workflow on the phase-3 room scan: the box's points
+    selected, cropped out of the scene (crop_point_cloud), both saved as
+    reference .pth files; the transform file. Returns (points in the box,
+    points left, crop s, save s)."""
+    from sgnerf_tpu_torch.editor import NeuralPointCloudEdit, crop_point_cloud
+    os.makedirs(parts, exist_ok=True)
+    scene = NeuralPointCloudEdit.from_checkpoint(os.path.join(
+        REPO, "build", "smoke", "0_net_ray_marching.npz"))
+    lo, hi = EDIT_BOX
+    box = scene.select(np.all((scene.xyz >= lo) & (scene.xyz <= hi), 1))
+    t0 = time.perf_counter()
+    rest = crop_point_cloud(box, scene)
+    crop_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rest.to_checkpoint(os.path.join(parts, "rest.pth"))
+    box.to_checkpoint(os.path.join(parts, "box.pth"))
+    save_s = time.perf_counter() - t0
+    np.savetxt(os.path.join(parts, "T.txt"), edit_transform())
+    assert box.n + rest.n == scene.n and box.n > scene.n // 1000, box.n
+    return box.n, rest.n, crop_s, save_s
+
+
+def pixel_ray(item, xyz):
+    """Index of the item's ray through the pixel where world point xyz
+    projects."""
+    c2w = item["c2w"].astype(np.float64)
+    p = (np.asarray(xyz, np.float64) - c2w[:3, 3]) @ c2w[:3, :3]
+    K = np.asarray(item["intrinsic"], np.float64)
+    u = int(K[0, 0] * p[0] / p[2] + K[0, 2])
+    v = int(K[1, 1] * p[1] / p[2] + K[1, 2])
+    pix = item["pixel_idx"]
+    hit = np.nonzero((pix[:, 0] == u) & (pix[:, 1] == v))[0]
+    assert p[2] > 0 and len(hit) == 1, (u, v, p)
+    return int(hit[0])
+
+
+def write_lpips_weights(d, seed=0):
+    """Random-valued AlexNet/VGG16 trunks and calibration heads in the
+    files utils/lpips.py looks for (torchvision and lpips layouts)."""
+    import torch
+    from sgnerf_tpu_torch.utils.lpips import (_ALEX_CONVS, _ALEX_IDX,
+                                              _VGG_CFG, _tv_vgg_conv_indices)
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(seed)
+
+    def conv(o, i, k):
+        return torch.as_tensor(rng.normal(scale=0.05, size=(o, i, k, k))
+                               .astype(np.float32))
+    alex = {}
+    for idx, (o, i, k, _, _, _) in zip(_ALEX_IDX, _ALEX_CONVS):
+        alex[f"features.{idx}.weight"] = conv(o, i, k)
+        alex[f"features.{idx}.bias"] = torch.zeros(o)
+    vgg, cin = {}, 3
+    for idx, v in zip(_tv_vgg_conv_indices(),
+                      [c for c in _VGG_CFG if c != "M"]):
+        vgg[f"features.{idx}.weight"] = conv(v, cin, 3)
+        vgg[f"features.{idx}.bias"] = torch.zeros(v)
+        cin = v
+
+    def lin(chans):
+        return {f"lin{i}.model.1.weight": torch.as_tensor(
+            rng.uniform(0, 0.1, (1, c, 1, 1)).astype(np.float32))
+            for i, c in enumerate(chans)}
+    torch.save(alex, os.path.join(d, "alexnet-smoke.pth"))
+    torch.save(lin([64, 192, 384, 256, 256]), os.path.join(d, "alex.pth"))
+    torch.save(vgg, os.path.join(d, "vgg16-smoke.pth"))
+    torch.save(lin([64, 128, 256, 512, 512]), os.path.join(d, "vgg.pth"))
+
+
+def phase20_edit(flags, data):
+    """Phase 20a: the editing CLI on the cropped and moved box, 2 test
+    frames with the counters reset just before; then the edit frame's
+    checks. Returns the edited model and the frame's item."""
+    import torch
+    from sgnerf_tpu_torch.data import create_dataset
+    from sgnerf_tpu_torch.models import aggregator as agg_mod
+    from sgnerf_tpu_torch.models import renderer as ren_mod
+    from sgnerf_tpu_torch.models.aggregator import _rot_vec
+    from sgnerf_tpu_torch.options import EditOptions
+    from sgnerf_tpu_torch.run import editing
+
+    opt = EditOptions().parse(flags)
+    opt.split, opt.random_sample = "test", "no_crop"
+    item = create_dataset(opt).get_item(0, full_img=True)
+    centre = (EDIT_BOX[0] + EDIT_BOX[1]) / 2
+    # where the box's centre moves (transform_point_cloud_global: x R + t)
+    ray = pixel_ray(item, centre @ edit_transform()[:3, :3]
+                    + np.asarray(EDIT_SHIFT))
+    n_rays = len(item["raydir"])
+    chunks = -(-n_rays // 9216)
+    chunk = ray // 9216
+    store = {}
+    k2_fn = capture_first_call(agg_mod, "fused_block1_alpha", store,
+                               call=chunk)
+    ga_fn = capture_first_call(ren_mod, "gather_and_aggregate", store,
+                               call=chunk)
+    tee = Tee(sys.stdout)
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(tee):
+            model = editing.main(flags)
+        torch.cuda.synchronize()
+    finally:
+        agg_mod.fused_block1_alpha = k2_fn
+        ren_mod.gather_and_aggregate = ga_fn
+    cli_s = time.perf_counter() - t0
+    launches = read_launches()
+    frame_s = [float(l_.split("render time:")[1].split()[0])
+               for l_ in tee.buf.getvalue().splitlines()
+               if l_.startswith("edit frame")]
+    cloud = model.cloud
+    log(f"phase 20: editing CLI ({int(cloud.n_active)} points, rotation "
+        f"table {tuple(cloud.Rw2c.shape)}) rendered {len(frame_s)} frames "
+        f"of {n_rays} rays in {cli_s:.1f} s (frames {frame_s} s), launches "
+        f"{launches} ({chunks} chunks a frame) [{SMI}]")
+    assert len(frame_s) == len(EDIT_VIEWS) and cloud.Rw2c.shape[0] == 2
+    assert launches["fused_knn_select"] == chunks * len(frame_s), launches
+    assert launches["fused_block1_alpha"] == chunks * len(frame_s), launches
+    assert sum(launches.values()) == 2 * chunks * len(frame_s), launches
+
+    # the same camera, warm: the edited scene, then the default scene
+    col = model.render_image(item)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    col = model.render_image(item)
+    edit_ms = (time.perf_counter() - t0) * 1e3
+    assert col.shape == (n_rays, 3) and np.isfinite(col).all()
+
+    # the rotation on the captured chunk: its table's bytes, the gather
+    # and the rotation of the offsets K2 takes, each timed alone
+    args, kwargs = store["fused_block1_alpha"]
+    pidx = store["gather_and_aggregate"][0][4]        # sample_pidx
+    pid = pidx.clamp(0, cloud.capacity - 1).long()
+
+    def gather():
+        return cloud.Rw2c[cloud.rot_idx[pid].long()]
+    rot = gather()
+    d3 = args[1][..., :3].reshape(rot.shape[:-1])
+    valid = pidx >= 0
+    moved_nb = int(((rot - torch.eye(3, device=rot.device)).abs().amax(
+        (-2, -1)) > 0)[valid].sum())
+    g_ms, r_ms = cuda_ms(gather), cuda_ms(lambda: _rot_vec(d3, rot))
+    # a yardstick: the same product by torch.einsum, as the JAX package
+    # writes it
+    alt = torch.einsum("...i,...ji->...j", d3, rot)
+    e_ms = cuda_ms(lambda: torch.einsum("...i,...ji->...j", d3, rot))
+    log(f"phase 20: rotation on edit chunk {chunk} of {chunks}: per-"
+        f"neighbour table {tuple(rot.shape)} = {rot.numel() * 4 / 2**20:.1f}"
+        f" MiB, {moved_nb} of {int(valid.sum())} neighbours in the moved "
+        f"part; gather {g_ms:.3f} ms, the offsets' rotation {r_ms:.3f} ms "
+        f"(torch.einsum {e_ms:.3f} ms, max |diff| "
+        f"{float((alt - _rot_vec(d3, rot)).abs().max()):.1e})")
+    del alt
+    assert moved_nb > 0
+    errs = hold_k2(args, kwargs, "phase 20 (edit chunk)")
+    del store, args, kwargs, rot, d3, pid, pidx, valid
+
+    # 512 rays about the moved box's centre, kernel path vs un-fused path
+    sub = slice(ray - 256, ray + 256)
+    dev = model.device
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    kw = dict(campos=t(item["campos"])[None],
+              raydir=t(item["raydir"][sub])[None],
+              camrotc2w=t(item["camrotc2w"])[None], near=float(item["near"]),
+              far=float(item["far"]), bg_color=t(item["bg_color"]),
+              table=model.table)
+    plain_cfg = dataclasses.replace(
+        model.cfg, knn_mode="exact",
+        agg=dataclasses.replace(model.cfg.agg, fused_mlp="none"))
+    with torch.inference_mode():
+        a = ren_mod.render_rays(model.params, cloud, model.grid, model.cfg,
+                                **kw)["coarse_raycolor"]
+        b = ren_mod.render_rays(model.params, cloud, model.grid, plain_cfg,
+                                **kw)["coarse_raycolor"]
+    err = float((a - b).abs().max())
+    log(f"phase 20: 512 edit rays about the moved box, kernel path vs "
+        f"un-fused path: max |diff| {err:.3e} (tolerance {RENDER_ATOL})")
+    assert torch.isfinite(a).all() and err <= RENDER_ATOL
+    return model, item, kw, edit_ms, errs
+
+
+def phase20_tools():
+    """Phase 20: the tools at full width on the phase-3 room scan and the
+    phase-8 export: editing, the edited scene's .pth round trip, test_edit
+    with the label cloud and its IoU, render_vid, the viewer,
+    vis_grow_train and evaluate with LPIPS."""
+    import urllib.request
+
+    import torch
+    from sgnerf_tpu_torch.options import TestOptions
+    from sgnerf_tpu_torch.run import (evaluate, gui, render_vid, result,
+                                      test_edit, vis_grow_train)
+    from sgnerf_tpu_torch.runtime.scene_model import (SceneModel,
+                                                      factor_rotations)
+    from sgnerf_tpu_torch.models.checkpoint_io import load_torch_state_dict
+    from sgnerf_tpu_torch.utils import lpips as lpips_mod
+    from sgnerf_tpu_torch.utils.ply import write_ply
+
+    build = os.path.join(REPO, "build")
+    base = os.path.join(build, "smoke_edit")
+    parts = os.path.join(base, "parts")
+    data = ["--data_root", os.path.join(build, "smoke_scans") + "/",
+            "--scan", "scene_smoke", "--dataset_name", "scannet_ft",
+            "--test_list"] + EDIT_VIEWS
+    t0 = time.perf_counter()
+    n_box, n_rest, crop_s, save_s = write_edit_parts(parts)
+    log(f"phase 20: editor: {n_box} points in the box cropped from the "
+        f"room scan ({n_rest} left) in {crop_s:.2f} s; both parts saved as "
+        f".pth in {save_s:.2f} s")
+    flags = with_flags(TEST_DEFAULT_FLAGS, {
+        "--name": ["edit"], "--checkpoints_dir": [base]}) + data + [
+        "--resume_dir", parts, "--neural_points_names", "rest.pth", "box.pth",
+        "--Transformation_names", "identity", "T.txt"]
+    model, item, kw, edit_ms, _ = phase20_edit(flags, data)
+
+    # the default scene on the same camera, warm
+    opt = TestOptions().parse(TEST_DEFAULT_FLAGS + data)
+    default = SceneModel(opt)
+    default.load_checkpoint(default.resolve_resume())
+    default.render_image(item)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    default.render_image(item)
+    default_ms = (time.perf_counter() - t1) * 1e3
+    log(f"phase 20: warm frame of edit view 0: edited scene {edit_ms:.1f} "
+        f"ms, default scene {default_ms:.1f} ms "
+        f"({edit_ms / default_ms - 1:+.1%}) [{SMI}]")
+    del default
+    torch.cuda.empty_cache()
+
+    # the edited scene's .pth round trip (a dense per-point Rw2c)
+    t1 = time.perf_counter()
+    model.export_reference(1)
+    export_s = time.perf_counter() - t1
+    pth = os.path.join(model.expr_dir, "1_net_ray_marching.pth")
+    dense = load_torch_state_dict(pth)["neural_points.Rw2c"]
+    t1 = time.perf_counter()
+    table, rot_idx = factor_rotations(dense)
+    unique_s = time.perf_counter() - t1
+    opt = TestOptions().parse(with_flags(TEST_DEFAULT_FLAGS, {
+        "--name": ["edit"], "--checkpoints_dir": [base],
+        "--resume_iter": ["1"]}) + data)
+    loaded = SceneModel(opt)
+    t1 = time.perf_counter()
+    loaded.load_checkpoint(loaded.resolve_resume())
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t1
+    n = int(model.cloud.n_active)
+    np.testing.assert_array_equal(table[rot_idx], dense)
+    np.testing.assert_array_equal(
+        loaded.cloud.Rw2c.cpu().numpy()[loaded.cloud.rot_idx.cpu().numpy()
+                                        [:n]], dense)
+    with torch.inference_mode():
+        a, b = render_rays_of(loaded, kw), render_rays_of(model, kw)
+    err = float((a - b).abs().max())
+    log(f"phase 20: edited scene .pth round trip ({n} points, dense Rw2c "
+        f"{tuple(dense.shape)}): export {export_s:.2f} s, np.unique factor "
+        f"{unique_s:.2f} s of a load of {load_s:.2f} s -> table "
+        f"{tuple(table.shape)}; 512 rays of the loaded scene vs the edited "
+        f"one: max |diff| {err:.3e} [{SMI}]")
+    assert table.shape[0] == 2 and err <= 1e-6
+    del model, loaded, a, b, dense
+    torch.cuda.empty_cache()
+
+    # test_edit on the loaded .pth: 1 frame and the predicted-label cloud
+    te_flags = with_flags(TEST_DEFAULT_FLAGS, {
+        "--name": ["edit"], "--checkpoints_dir": [base],
+        "--resume_iter": ["1"]}) + data + ["--save_predict_label", "1",
+                                           "--test_num_step", "2"]
+    reset_launches()
+    t1 = time.perf_counter()
+    psnrs = test_edit.main(te_flags)
+    torch.cuda.synchronize()
+    te_s = time.perf_counter() - t1
+    launches = read_launches()
+    log(f"phase 20: test_edit ({len(psnrs)} frame, PSNR {psnrs}) with the "
+        f"{n}-point label cloud in {te_s:.1f} s, launches {launches}")
+    assert len(psnrs) == 1 and np.isfinite(psnrs).all()
+    assert launches["fused_knn_select"] > 0 and \
+        launches["fused_block1_alpha"] > 0
+    pred = os.path.join(base, "edit", "images", "pred_label_cloud.txt")
+    xyz = np.loadtxt(pred, delimiter=";", usecols=(0, 1, 2)).astype(
+        np.float32)
+    # the labelled mesh: the room scan's surfaces as ScanNet-40 ids
+    mesh = os.path.join(base, "gt.labels.ply")
+    from sgnerf_tpu_torch.data.synthetic import room_scan
+    room = room_scan(np.random.default_rng(0), N_POINTS)
+    write_ply(mesh, {"x": room[:, 0], "y": room[:, 1], "z": room[:, 2],
+                     "label": room_surface_ids(room).astype(np.uint8)})
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):       # 20 class lines
+        miou = result.main(["--pred", pred, "--gt_labels_ply", mesh])
+    log(f"phase 20: result (IoU of {len(xyz)} label points against a "
+        f"{N_POINTS}-vertex mesh) {miou:.4f} in "
+        f"{time.perf_counter() - t1:.1f} s")
+    assert len(xyz) == n and 0.0 <= miou <= 1.0
+
+    # render_vid: the SLERP path through the two test views
+    reset_launches()
+    t1 = time.perf_counter()
+    vflags = TEST_DEFAULT_FLAGS + data + ["--render_stride",
+                                          str(VID_FRAMES)]
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        n_frames = render_vid.main(vflags)
+    torch.cuda.synchronize()
+    vid_ms = [float(l_.split("render time:")[1].split()[0]) * 1e3
+              for l_ in tee.buf.getvalue().splitlines()
+              if l_.startswith("frame ")]
+    log(f"phase 20: render_vid {n_frames} frames in "
+        f"{time.perf_counter() - t1:.1f} s (frames {vid_ms} ms), launches "
+        f"{read_launches()} [{SMI}]")
+    assert n_frames == VID_FRAMES == len(vid_ms)
+
+    # one viewer render through its HTTP server
+    viewer = gui.Viewer(TestOptions().parse(TEST_DEFAULT_FLAGS + data))
+    server = gui.make_server(viewer, 0, "127.0.0.1")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = (f"http://127.0.0.1:{server.server_address[1]}/render?"
+               f"az={np.pi / 2}&el=0&r=0.1")
+        urllib.request.urlopen(url, timeout=120).read()
+        t1 = time.perf_counter()
+        jpeg = urllib.request.urlopen(url, timeout=120).read()
+        view_ms = (time.perf_counter() - t1) * 1e3
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+    from PIL import Image
+    with Image.open(io.BytesIO(jpeg)) as im:
+        size = im.size
+    # the same camera's pixels before the JPEG: most see the room
+    hit = float((viewer.render_rgb(np.pi / 2, 0.0, 0.1, np.zeros(
+        3, np.float32)) != 255).any(-1).mean())
+    log(f"phase 20: viewer /render {size[0]}x{size[1]} JPEG ({len(jpeg)} "
+        f"B) in {view_ms:.1f} ms warm, pixels off the background {hit:.3f}"
+        f" [{SMI}]")
+    assert jpeg[:2] == b"\xff\xd8" and size == (viewer.W, viewer.H)
+    assert hit > 0.5, hit
+    del viewer
+    torch.cuda.empty_cache()
+
+    # vis_grow_train: one probe frame (2304-ray chunks)
+    reset_launches()
+    t1 = time.perf_counter()
+    counts = vis_grow_train.main(TEST_DEFAULT_FLAGS + data + [
+        "--test_num", "1", "--prob_thresh", "0.0"])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"phase 20: vis_grow_train 1 probe frame, {counts} probe points, "
+        f"in {time.perf_counter() - t1:.1f} s, launches {launches} [{SMI}]")
+    assert counts[0] > 0 and launches["fused_block1_alpha"] > 0
+
+    # evaluate with LPIPS on the card, against the CPU
+    weights = os.path.join(base, "lpips")
+    write_lpips_weights(weights)
+    os.environ["SGNERF_LPIPS"] = weights
+    lpips_mod._load.cache_clear()
+    imgs = os.path.join(base, "edit", "images", "test_edit")
+    try:
+        t1 = time.perf_counter()
+        means = evaluate.main(["--gt_dir", imgs, "--img_dir", imgs,
+                               "--gpu_ids", "0"])
+        eval_s = time.perf_counter() - t1
+        img = evaluate.load_image(os.path.join(
+            imgs, "step-0000-coarse_raycolor.png"))
+        gt = evaluate.load_image(os.path.join(imgs, "step-0000-gt_image.png"))
+        for net in ("alex", "vgg"):
+            card = lpips_mod.lpips_distance(img, gt, net, device="cuda:0")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            card = lpips_mod.lpips_distance(img, gt, net, device="cuda:0")
+            card_ms = (time.perf_counter() - t1) * 1e3
+            t1 = time.perf_counter()
+            cpu = lpips_mod.lpips_distance(img, gt, net, device="cpu")
+            cpu_ms = (time.perf_counter() - t1) * 1e3
+            log(f"phase 20: LPIPS {net} at {img.shape[1]}x{img.shape[0]}: "
+                f"card {card:.6f} in {card_ms:.1f} ms, CPU {cpu:.6f} in "
+                f"{cpu_ms:.1f} ms, |diff| {abs(card - cpu):.3e} (tolerance "
+                f"{LPIPS_TOL}) [{SMI}]")
+            assert abs(card - cpu) <= LPIPS_TOL
+            key = "lpips" if net == "alex" else "vgglpips"
+            assert abs(means[key] - card) <= 1e-5, (means, card)
+    finally:
+        os.environ.pop("SGNERF_LPIPS")
+        lpips_mod._load.cache_clear()
+    log(f"phase 20: evaluate {means} in {eval_s:.1f} s; phase 20 "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def render_rays_of(model, kw):
+    """coarse_raycolor of model on phase20_edit's 512 rays."""
+    from sgnerf_tpu_torch.models.renderer import render_rays
+    return render_rays(model.params, model.cloud, model.grid, model.cfg,
+                       **dict(kw, table=model.table))["coarse_raycolor"]
 
 
 if __name__ == "__main__":

@@ -3,7 +3,8 @@
 The JAX package `sgnerf_tpu` is the reference; module paths here mirror it.
 This package imports torch and never jax, the JAX package or bench.py: it
 keeps its own copies of the numpy-only pieces it needs (the flag table,
-checkpoint I/O, metrics, the visualizer, the ply reader, the room scan).
+checkpoint I/O, metrics, the visualizer, the ply reader, the room scan,
+the editor, the camera path, IoU scoring and the ScanNet data tools).
 
 Slice 1 is the eval render of the default `viewmlp` config in world
 coordinates: `run/test_ft.py` -> `SceneModel.render_image` ->

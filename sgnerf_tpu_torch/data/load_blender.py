@@ -2,9 +2,10 @@
 
 Counterpart of `sgnerf_tpu/data/load_blender.py` (reference
 data/load_blender.py): transforms_{split}.json frames, poses right-multiplied
-by blender2opencv, and the pickled point cloud (`load_blender_cloud`).
-Images are read with PIL. The spherical render path (`render_poses`) is
-left out until a command line renders it.
+by blender2opencv, the spherical render path (`render_poses`, 20 poses on
+a circle at elevation -30 deg and radius 4, which run/render_vid.py
+renders) and the pickled point cloud (`load_blender_cloud`). Images are
+read with PIL.
 """
 from __future__ import annotations
 
@@ -14,6 +15,45 @@ import pickle
 import random
 
 import numpy as np
+
+
+def trans_t(t):
+    m = np.eye(4, dtype=np.float32)
+    m[2, 3] = t
+    return m
+
+
+def rot_phi(phi):
+    m = np.eye(4, dtype=np.float32)
+    m[1, 1] = m[2, 2] = np.cos(phi)
+    m[1, 2] = -np.sin(phi)
+    m[2, 1] = np.sin(phi)
+    return m
+
+
+def rot_theta(th):
+    m = np.eye(4, dtype=np.float32)
+    m[0, 0] = m[2, 2] = np.cos(th)
+    m[0, 2] = -np.sin(th)
+    m[2, 0] = np.sin(th)
+    return m
+
+
+def pose_spherical(theta, phi, radius):
+    """The blender c2w at azimuth theta and elevation phi (degrees), at
+    `radius` from the origin."""
+    c2w = trans_t(radius)
+    c2w = rot_phi(phi / 180.0 * np.pi) @ c2w
+    c2w = rot_theta(theta / 180.0 * np.pi) @ c2w
+    c2w = np.array([[-1, 0, 0, 0], [0, 0, 1, 0], [0, 1, 0, 0], [0, 0, 0, 1]],
+                   dtype=np.float32) @ c2w
+    return c2w
+
+
+def render_poses(stride: int = 20) -> np.ndarray:
+    """The spin path: `stride` poses over a full turn, (stride,4,4)."""
+    return np.stack([pose_spherical(a, -30.0, 4.0)
+                     for a in np.linspace(-180, 180, stride + 1)[:-1]], 0)
 
 
 blender2opencv = np.array([[1, 0, 0, 0], [0, -1, 0, 0], [0, 0, -1, 0],

@@ -5,8 +5,9 @@ ScannetFtDataset's item contract: per-view pixel batches, ray directions
 (the poses are blender2opencv-converted, +z forward, so rays are
 intrinsic-based as in the reference's nerf_synth_ft_dataset.py:540), gt
 colours with the RGBA alpha composited over bg_color, the init cloud from
-`--cloud_path` (`load_init_points`), and the views' alpha masks, intrinsics
-and world-to-camera poses for the MVS bootstrap's visual hull.
+`--cloud_path` (`load_init_points`), the views' alpha masks, intrinsics
+and world-to-camera poses for the MVS bootstrap's visual hull, and the
+spin path's items (`get_dummyrot_item`, run/render_vid.py).
 """
 from __future__ import annotations
 
@@ -14,8 +15,8 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from .data_utils import get_dtu_raydir
-from .load_blender import load_blender_data
+from .data_utils import get_blender_raydir, get_dtu_raydir
+from .load_blender import load_blender_data, render_poses
 
 
 class NerfSynthFtDataset:
@@ -29,6 +30,7 @@ class NerfSynthFtDataset:
                               if self.split != "train" else 1)
         self.imgs = imgs
         self.poses = poses
+        self.render_poses = render_poses()
         self.height, self.width, self.focal = hwf
         self.intrinsic = intrinsic.astype(np.float32)
         self.near_far = [opt.near_plane, opt.far_plane]
@@ -101,6 +103,24 @@ class NerfSynthFtDataset:
         return item
 
     __getitem__ = get_item
+
+    def get_dummyrot_item(self, idx: int) -> Dict:
+        """A full-frame item on the spin path's pose idx (reference
+        get_dummyrot_item, which render_vid renders): blender-convention
+        rays, normalised."""
+        pose = self.render_poses[idx % len(self.render_poses)]
+        item = self.get_item(0, full_img=False)
+        item["campos"] = pose[:3, 3].astype(np.float32)
+        item["camrotc2w"] = pose[:3, :3].astype(np.float32)
+        item["c2w"] = pose.astype(np.float32)
+        px, py = np.meshgrid(np.arange(self.width, dtype=np.float32),
+                             np.arange(self.height, dtype=np.float32))
+        pix = np.stack([px, py], -1)
+        item["pixel_idx"] = pix.reshape(-1, 2)
+        item["raydir"] = get_blender_raydir(
+            pix, self.height, self.width, self.focal, item["camrotc2w"],
+            True).reshape(-1, 3)
+        return item
 
     def get_campos_ray(self):
         """Each view's camera centre and centre-pixel direction (each

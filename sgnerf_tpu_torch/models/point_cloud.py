@@ -5,9 +5,10 @@ grid spec and build, `prune`, `grow` and `set_bpnet_feats`. Every field of
 the JAX cloud is carried (so either package loads the other's native
 checkpoints): the semantic fields (feats, BPNet's input colours; label,
 label_prob and sem_embedding, its outputs, written by SemanticDriver
-and never trained) and the per-part rotation index, which rides along
-unused until editing (ROADMAP item 16). Padding rows past the live points
-sit at 1e9 so they never enter the grid.
+and never trained) and an edited scene's per-part rotations: Rw2c is
+(3,3) for the whole scene or a (T,3,3) table, and rot_idx each point's
+row in it (the renderer gathers a row per neighbour). Padding rows past
+the live points sit at 1e9 so they never enter the grid.
 """
 from __future__ import annotations
 

@@ -340,6 +340,13 @@ def gather_and_aggregate(params, cloud, cfg: RenderConfig, table, sample_pidx,
     sample_loc = torch.stack([w2pers(sample_loc_w[b].reshape(-1, 3),
                                      camrotc2w[b], campos[b])
                               for b in range(B)]).reshape(sample_loc_w.shape)
+    # an edited scene: a per-part rotation table (T,3,3) and each point's
+    # row, gathered per neighbour (the reference gathers a dense per-point
+    # (N,3,3) Rw2c, point_aggregators.py:568); an empty slot takes point
+    # 0's row, as pid does
+    rot = cloud.Rw2c
+    if rot.dim() == 3:
+        rot = rot[cloud.rot_idx[pid].long()]          # (B,R,SR,K,3,3)
     march = None
     if fuse_march:
         # the march's per-sample distances are known before aggregation
@@ -359,7 +366,7 @@ def gather_and_aggregate(params, cloud, cfg: RenderConfig, table, sample_pidx,
         sample_loc=sample_loc,
         sample_loc_w=sample_loc_w,
         sample_ray_dirs=raydir[:, :, None, :].expand(B, R, cfg.SR, 3),
-        Rw2c=cloud.Rw2c, vsize=cfg.vsize, march=march)
+        Rw2c=rot, vsize=cfg.vsize, march=march)
     sampled = {"xyz": sampled_xyz, "embedding": sampled_embedding,
                "color": sampled_color, "dir": sampled_dir,
                "conf": sampled_conf}

@@ -39,3 +39,17 @@ def get_dtu_raydir(pixelcoords: torch.Tensor, intrinsic: torch.Tensor,
         dirs = dirs / (torch.linalg.norm(dirs, dim=-1, keepdim=True) + 1e-5)
     return dirs
 
+
+def get_blender_raydir(pixelcoords: torch.Tensor, height: float,
+                       width: float, focal: float, rot: torch.Tensor,
+                       dir_norm: bool = True) -> torch.Tensor:
+    """Blender/NeRF-synthetic per-pixel ray directions (the camera looks
+    down -z with y up; reference data_utils.py:40-52), for the raw
+    spherical render poses."""
+    x = (pixelcoords[..., 0] + 0.5 - width / 2.0) / focal
+    y = (pixelcoords[..., 1] + 0.5 - height / 2.0) / focal
+    dirs = torch.stack([x, -y, -torch.ones_like(x)], dim=-1)
+    dirs = (dirs[..., None, :] * rot).sum(-1)
+    if dir_norm:
+        dirs = dirs / (torch.linalg.norm(dirs, dim=-1, keepdim=True) + 1e-5)
+    return dirs

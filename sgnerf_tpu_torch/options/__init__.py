@@ -1,2 +1,2 @@
-from .options import (BaseOptions, TestOptions, TrainOptions,  # noqa: F401
-                      configs_from_opt, device_from_opt)
+from .options import (BaseOptions, EditOptions, TestOptions,  # noqa: F401
+                      TrainOptions, configs_from_opt, device_from_opt)

@@ -239,6 +239,10 @@ class TestOptions(BaseOptions):
     is_train = False
 
 
+class EditOptions(BaseOptions):
+    is_train = False
+
+
 def device_from_opt(opt) -> torch.device:
     """--gpu_ids: "-1" is the CPU, otherwise cuda:<first id>. No probe of
     the machine: without a card the first CUDA allocation fails."""

@@ -67,7 +67,7 @@ def main(args=None):
         visualizer.display_current_results(
             {"coarse_raycolor": img, "gt_image": gt}, i, subdir=subdir)
     print(f"mean psnr: {np.mean(psnrs):.4f} over {len(psnrs)} images")
-    report_metrics(out_dir, out_dir, out_dir)
+    report_metrics(out_dir, out_dir, out_dir, device=model.device)
     if opt.vid > 0:
         visualizer.gen_video(out_dir, r"step-\d+-coarse_raycolor\.png",
                              os.path.join(out_dir, "video.mp4"))

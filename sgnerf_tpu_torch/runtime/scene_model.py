@@ -3,7 +3,8 @@ and full-frame rendering.
 
 Counterpart of `sgnerf_tpu/runtime/scene_model.py` for one device:
 checkpoint resume (`{iter}_net_ray_marching.{npz,pth}`, resume_iter
-latest|best|N), the point bootstrap from the dataset's init points
+latest|best|N; an edited `.pth`'s per-point Rw2c is factored into a part
+table, `factor_rotations`), the point bootstrap from the dataset's init points
 (`setup_from_points`), the train step (`optimize`, `optimize_multi`),
 prune and grow with grid rebuild (growing's probes: runtime/growing.py),
 checkpoint save and `.pth` export, and the chunked full-frame render. The
@@ -60,6 +61,21 @@ def get_latest_epoch(ckpt_dir: str) -> Optional[int]:
         if m:
             iters.append(int(m.group(1)))
     return max(iters) if iters else None
+
+
+def factor_rotations(rw2c):
+    """An edited .pth's dense per-point Rw2c (N,3,3) (reference
+    neural_points.py:650) -> (the part table (T,3,3), each point's row
+    (N,) int32): rows equal to 6 decimals are one part, each part's first
+    point gives its row. A (3,3) or missing Rw2c passes through, with no
+    index."""
+    if rw2c is None or np.asarray(rw2c).ndim != 3:
+        return rw2c, None
+    rw2c = np.asarray(rw2c, np.float32)
+    _, first, inv = np.unique(np.round(rw2c.reshape(len(rw2c), -1), 6),
+                              axis=0, return_index=True, return_inverse=True)
+    # numpy 2.0 returned the inverse as (N,1) for axis=0
+    return rw2c[first], inv.reshape(-1).astype(np.int32)
 
 
 def batch_to_device(item: Dict, device) -> Dict[str, torch.Tensor]:
@@ -167,14 +183,11 @@ class SceneModel:
                 st = load_reference_states(states)
                 self.best_psnr = float(st.get("best_PSNR", 0.0) or 0.0)
                 self.best_iter = int(st.get("best_iter", 0) or 0)
-            if pts["Rw2c"] is not None and np.asarray(pts["Rw2c"]).ndim == 3:
-                raise NotImplementedError(
-                    "per-point Rw2c (edited scenes) is not ported yet "
-                    "(ROADMAP.md, queue 1 item 16)")
+            rw2c, rot_idx = factor_rotations(pts["Rw2c"])
             cloud = make_point_cloud(
                 pts["xyz"], pts["embedding"], conf=pts["conf"],
                 dir=pts["dir"], color=pts["color"], feats=pts["feats"],
-                label=pts["label"], Rw2c=pts["Rw2c"],
+                label=pts["label"], Rw2c=rw2c, rot_idx=rot_idx,
                 capacity=self._capacity_for(len(pts["xyz"])),
                 device=self.device)
             # the companion BPNet embedding, when one was saved

@@ -3,10 +3,9 @@
 
 SSIM is the standard Wang et al. formulation with an 11x11 gaussian window
 and the defaults skimage uses (gaussian_weights=True, sigma=1.5,
-use_sample_covariance=False) as the reference calls it. LPIPS
-(`sgnerf_tpu/utils/lpips.py`) is not ported yet (ROADMAP.md, queue 1 item
-16): `lpips()` returns None and reports write nan, as the JAX package does
-when no LPIPS weights are on disk.
+use_sample_covariance=False) as the reference calls it. LPIPS is
+utils/lpips.py (plain torch on weight files the user supplies): without
+them `lpips()` returns None and reports write nan, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -70,9 +69,15 @@ def ssim(img: np.ndarray, ref: np.ndarray, max_val: float = 1.0,
 
 
 def lpips(img: np.ndarray, ref: np.ndarray,
-          net: str = "alex", weights_path: Optional[str] = None):
-    """Not ported yet (ROADMAP item 16): None, the metric is omitted."""
-    return None
+          net: str = "alex", weights_path: Optional[str] = None,
+          device="cpu"):
+    """LPIPS perceptual distance on `device` (utils/lpips.py: an
+    AlexNet/VGG16 trunk and the lpips package's linear calibration, from
+    weight files the user supplies), or None when no weights are on disk
+    (the reference omits the metric likewise without the lpips package)."""
+    from .lpips import lpips_distance
+    return lpips_distance(img, ref, net=net, weights_dir=weights_path,
+                          device=device)
 
 
 def mse2psnr(mse: float, max_val: float = 1.0) -> float:

@@ -28,8 +28,11 @@ class SphericalHarm_table:
         assert 1 <= deg <= 5, "table supports degree 1..5"
         self.total_deg = deg
 
-    def sh_all(self, dirs: torch.Tensor):
+    def sh_all(self, dirs: torch.Tensor, filp_dir: bool = False):
+        """filp_dir (the reference's spelling) evaluates at -dirs."""
         x, y, z = dirs[..., 0], dirs[..., 1], dirs[..., 2]
+        if filp_dir:
+            x, y, z = -x, -y, -z
         out = [torch.full(x.shape, C0, dtype=dirs.dtype, device=dirs.device)]
         deg = self.total_deg
         if deg > 1:

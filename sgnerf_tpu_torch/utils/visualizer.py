@@ -3,7 +3,7 @@
 The port's copy of `sgnerf_tpu/utils/visualizer.py` (reference
 utils/visualizer.py:39-197): `step-%04d-{name}.png` image naming,
 accumulated loss averages printed every print_freq to stdout and appended to
-`{ckpt}/{name}/print/loss`, imageio video generation.
+`{ckpt}/{name}/print/loss`, video generation (imageio, else a GIF by PIL).
 """
 from __future__ import annotations
 
@@ -104,22 +104,30 @@ class Visualizer:
     # ------------------------------------------------------------------- video
 
     def gen_video(self, img_dir: str, pattern: str, out_path: str, fps: int = 24):
-        import imageio.v2 as imageio
+        """Frames matching `pattern` in img_dir -> out_path through imageio
+        (mp4 with an ffmpeg backend); without imageio or its backend, a GIF
+        beside it written by PIL (the reference writes .mov/.gif,
+        visualizer.py:85-95)."""
         import re
+        from PIL import Image
         files = sorted(
             (f for f in os.listdir(img_dir) if re.fullmatch(pattern, f)))
         if not files:
             print(f"gen_video: no frames matching {pattern} in {img_dir}")
             return
-        frames = [imageio.imread(os.path.join(img_dir, f)) for f in files]
+        frames = []
+        for f in files:
+            with Image.open(os.path.join(img_dir, f)) as im:
+                frames.append(np.asarray(im.convert("RGB")))
         try:
+            import imageio.v2 as imageio
             imageio.mimwrite(out_path, frames, fps=fps, quality=8)
         except (ImportError, RuntimeError, ValueError, OSError) as e:
-            # no ffmpeg backend in this environment: fall back to GIF
-            # (the reference writes .mov/.gif, visualizer.py:85-95)
             gif_path = os.path.splitext(out_path)[0] + ".gif"
             print(f"gen_video: {type(e).__name__} writing {out_path}; "
                   f"falling back to {gif_path}")
-            imageio.mimwrite(gif_path, frames, fps=min(fps, 24), loop=0)
+            gifs = [Image.fromarray(f) for f in frames]
+            gifs[0].save(gif_path, save_all=True, append_images=gifs[1:],
+                         duration=int(1000 / min(fps, 24)), loop=0)
             out_path = gif_path
         print(f"video written: {out_path} ({len(frames)} frames)")

@@ -29,7 +29,12 @@ for want in ("ops.pallas_gather", "runtime.growing", "dev.probe_gather",
              "data.nerf_synth_ft_dataset", "data.dtu_dataset",
              "data.dtu_ft_dataset", "ops.scatter", "models.background",
              "models.mvs_filter", "models.feedforward",
-             "runtime.mvs_bootstrap", "run.train"):
+             "runtime.mvs_bootstrap", "run.train", "editor.editor",
+             "editor.pointcloud", "utils.lpips", "utils.camera_path",
+             "utils.blur", "utils.util", "data.prepare_scannet",
+             "data.resample", "run.editing", "run.test_edit",
+             "run.render_vid", "run.gui", "run.visualize",
+             "run.vis_grow_train", "run.evaluate", "run.result"):
     assert "sgnerf_tpu_torch." + want in names, want
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "triton", "sgnerf_tpu",
@@ -69,6 +74,18 @@ def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
     roots = _imported_roots(os.path.join(REPO, "chip_smoke.py"))
     assert "sgnerf_tpu_torch" in roots
     assert not roots & set(FORBIDDEN), roots & set(FORBIDDEN)
+
+
+def test_chip_smoke_main_runs_after_every_definition():
+    """`python3 chip_smoke.py` calls main() from the module's last
+    statement, so every phase function main() names is defined by then."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    last = tree.body[-1]
+    assert isinstance(last, ast.If) and "__main__" in ast.unparse(last.test)
+    guards = [n for n in tree.body if isinstance(n, ast.If)
+              and "__main__" in ast.unparse(n.test)]
+    assert guards == [last]
 
 
 def test_flag_table_matches_the_jax_package():
