@@ -184,7 +184,22 @@ fine-tune train step (the flags of scene0113_00_default.sh). Phases:
      through its HTTP server; vis_grow_train (1 probe frame, K2 on 2304-ray
      chunks); evaluate with LPIPS on the card on weights the phase writes,
      alex and vgg against the CPU (LPIPS_TOL). Every time is logged with
-     the card's name and power limit.
+     the card's name and power limit;
+ 21. the opt-in training gathers at full width (phase 6's step with
+     --gather_dtype bfloat16): one step's losses under the six
+     --gather_vjp transposes bit-equal and their point gradients within
+     bf16_limit of the f32 transpose's; 8 steps under each (median ms,
+     peak GiB, K2 and K3 once a step, raydedup's and batchdedup's
+     overflow, batchdedup's 0; scatter's, sorted's and int8's step under
+     torch.profiler); --gather_round stochastic: SR_DRAWS draws
+     of the table on its bf16 grid, their mean within SR_RMS_LIMIT, 8
+     steps; --gather_dtype int8: q, scale and zero on the card equal the
+     CPU's, 8 steps; a --knn_mode approx eval frame (the exact select: K1
+     never, K2 once a chunk; the first chunk's ids equal the exact path's,
+     the frame within RENDER_ATOL of phase 4's); train_ft 10 steps on
+     phase 8's export with --gather_dtype bfloat16 --gather_round
+     stochastic --gather_vjp batchdedup (gvjp_overflow 0 in its prints).
+     `phase21_alone()` runs it with only the set-up it needs.
 
 Any failure raises and the script exits non-zero before its last line.
 The last line is {"ok": true, "device": {...}}; the line before it holds
@@ -192,6 +207,7 @@ the per-kernel JSON record. Without a CUDA device it exits non-zero at once.
 """
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import os
@@ -615,7 +631,7 @@ def main():
     for d in ("smoke", "smoke_ft", "smoke_scans", "smoke_grow", "smoke_sem",
               "smoke_sem_scans", "smoke_b3", "smoke_nerf",
               "smoke_pers", "smoke_dtu", "smoke_dtu_data",
-              "smoke_edit"):                                 # its outputs
+              "smoke_edit", "smoke_gathers"):                # its outputs
         shutil.rmtree(os.path.join(REPO, "build", d), ignore_errors=True)
 
     t_last = [time.perf_counter()]
@@ -782,6 +798,11 @@ def main():
     # ---- 20. the tools: editing, test_edit, render_vid, viewer, evaluate
     phase20_tools()
     stamp("phase 20")
+
+    # ---- 21. the opt-in training gathers (bf16/int8 tables, transposes)
+    phase21_gathers(item, col)
+    torch.cuda.empty_cache()
+    stamp("phase 21")
 
     log(json.dumps({"kernels": [records[k] for k in sorted(records)]}))
     log(json.dumps({"ok": True, "device": {
@@ -3783,6 +3804,339 @@ def phase20_tools():
     log(f"phase 20: evaluate {means} in {eval_s:.1f} s; phase 20 "
         f"{time.perf_counter() - t0:.1f} s")
 
+
+# ---------------------------------------------------------------- phase 21
+
+GATHER_VJPS = ("f32", "scatter", "sorted", "spread", "raydedup", "batchdedup")
+GATHER_STEPS = 8
+SR_DRAWS = 64
+# the mean of SR_DRAWS stochastic roundings onto x's two bf16 neighbours:
+# each draw is Bernoulli(p) on the ulp, so the mean's deviation has
+# std sqrt(p (1 - p) / SR_DRAWS) <= 1/16 ulp; the RMS over the table of
+# (mean - x) / ulp must lie below that (nearest rounding leaves ~0.29)
+SR_RMS_LIMIT = 1 / 16
+
+
+def bf16_limit(flat, rows, n):
+    """The bf16 limit of two gather transposes' table gradients, per
+    column: the largest count of one id's rows with a nonzero cotangent
+    times one bf16 ulp of the largest sum of |cotangent| over an id's
+    rows (a bf16 sum of d terms rounds d times, each by at most an ulp of
+    the running sum). flat (M,) ids, rows (M, C) the cotangent rows."""
+    import torch
+    a = rows.float().abs()
+    sums = torch.zeros((n, a.shape[1]), device=a.device).index_add_(
+        0, flat, a).amax(0)
+    dups = torch.zeros((n, a.shape[1]), device=a.device).index_add_(
+        0, flat, (a > 0).float()).amax(0)
+    e = torch.floor(torch.log2(torch.where(sums > 0, sums, 1.0)))
+    return dups * torch.where(sums > 0, 2.0 ** (e - 7), 0.0)
+
+
+def phase21_gathers(item, col):
+    """Phase 21: the opt-in training gathers (ROADMAP queue 1 item 17) at
+    full width: scene0113_00_default.sh's step on a bf16 attribute table
+    under the six transposes (one step's losses bit-equal; point gradients
+    within bf16_limit of the f32 transpose's; 8 steps each: median ms,
+    peak GiB, K2/K3 launches, the overflow counts), stochastic rounding
+    (on the bf16 grid, SR_DRAWS draws' mean within SR_RMS_LIMIT, 8 steps),
+    the int8 gather (q, scale, zero on the card equal to the CPU's; 8
+    steps), an eval frame with --knn_mode approx (ids equal to the exact
+    select's, the frame within RENDER_ATOL of phase 4's), and 10 train_ft
+    steps with --gather_dtype bfloat16 --gather_round stochastic
+    --gather_vjp batchdedup on phase 8's export."""
+    import torch
+    from sgnerf_tpu_torch.models import renderer as ren
+    from sgnerf_tpu_torch.models.train import loss_and_grads, trained_fields
+    from sgnerf_tpu_torch.ops.quant import (quantize_table_int8,
+                                            stochastic_round_bf16)
+    from sgnerf_tpu_torch.options import TestOptions, TrainOptions
+    from sgnerf_tpu_torch.run import train_ft
+    from sgnerf_tpu_torch.runtime.scene_model import SceneModel
+    t_phase = time.perf_counter()
+    # what earlier phases leave behind moves the host-bound steps and the
+    # peaks: collect it, and log the threads and Python objects that stay
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 21: live threads {[t.name for t in threading.enumerate()]}"
+        f", Python objects {len(gc.get_objects())}, device memory "
+        f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    build = os.path.join(REPO, "build")
+    opt = TrainOptions().parse(TRAIN_FLAGS + [
+        "--gather_dtype", "bfloat16", "--name", "smoke",
+        "--checkpoints_dir", build])
+    t0 = time.perf_counter()
+    model = SceneModel(opt)
+    model.load_checkpoint(model.resolve_resume())
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    assert (cfg.gather_dtype == "bfloat16" and cfg.agg.fused_mlp == "cuda"
+            and cfg.agg.fused_bwd == "cuda"), cfg
+    log(f"phase 21: train model, bf16 attribute table, loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    batch = train_batch(item, model.device)
+    R = batch["raydir"].shape[1]
+    dev = model.device
+    n_rows = model.cloud.capacity
+    F = model.cloud.embedding.shape[-1]
+    cols = {"embedding": slice(3, 3 + F), "color": slice(3 + F, 6 + F),
+            "conf": slice(9 + F, 10 + F)}
+    fields = trained_fields(model.tcfg)
+    T_rows = cfg.SR * cfg.K
+
+    # one step's losses and point gradients under each transpose, from one
+    # state and one noise draw
+    seen = []
+    orig = ren.gather_transpose
+
+    def recording(c, rows):
+        t = orig(c, rows)
+
+        def run(flat, g, n):
+            if not seen:
+                seen.append((flat, g))
+            return t(flat, g, n)
+        return run
+    gen = torch.Generator(device=dev).manual_seed(11)
+    noise = ren.draw_render_noise(gen, cfg, 1, R)
+    ren.gather_transpose = recording
+    ref = losses = None
+    worst = {}
+    try:
+        for v in GATHER_VJPS:
+            c = dataclasses.replace(cfg, gather_vjp=v)
+            if v == "raydedup":
+                # at gvjp_U = SR*K no ray can overflow: the default's
+                # dropped rows would make a difference of their own
+                c = dataclasses.replace(c, gvjp_U=T_rows)
+            loss, _, g_pts = loss_and_grads(model.state, model.grid, c,
+                                            model.tcfg, batch, noise=noise)
+            if ref is None:
+                flat, g = seen[0]
+                lim = bf16_limit(flat, g, n_rows)
+                ref, losses = g_pts, loss
+                continue
+            assert set(loss) == set(losses) | (
+                {"gvjp_overflow"} if v in ("raydedup", "batchdedup")
+                else set()), (v, sorted(loss))
+            for k in losses:
+                assert torch.equal(loss[k], losses[k]), (v, k)
+            worst[v] = {}
+            for f, a, b in zip(fields, g_pts, ref):
+                d = float((a - b).abs().max())
+                L = float(lim[cols[f]].max())
+                worst[v][f] = (d, L)
+                assert d <= L, (v, f, d, L)
+            del g_pts
+    finally:
+        ren.gather_transpose = orig
+    log(f"phase 21: one step, the six transposes: losses bit-equal "
+        f"(total {float(losses['total']):.6f}); point gradients vs the f32 "
+        f"transpose, max |diff| (limit): "
+        + "; ".join(f"{v} " + ", ".join(
+            f"{f} {d:.3e} ({L:.3e})" for f, (d, L) in w.items())
+            for v, w in worst.items()))
+    del ref, seen[:], noise
+    torch.cuda.empty_cache()
+
+    def steps(c, what, n=GATHER_STEPS, profile=False):
+        model.cfg = c
+        model._table = None
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        ms, out = [], None
+        for _ in range(n):
+            t1 = time.perf_counter()
+            out = model.optimize(batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        over = (int(float(out["gvjp_overflow"])) if "gvjp_overflow" in out
+                else None)
+        log(f"phase 21: {n} steps, {what}: step ms "
+            f"{[round(v, 1) for v in ms]}, median "
+            f"{statistics.median(ms):.1f} ms, peak {peak:.2f} GiB, K2 "
+            f"{launches['fused_block1_alpha']} K3 "
+            f"{launches['fused_block1_alpha_bwd']}, loss "
+            f"{float(out['total']):.6f}"
+            + ("" if over is None else f", gvjp_overflow {over}")
+            + f" [{SMI}]")
+        assert np.isfinite(float(out["total"]))
+        assert launches == {"fused_knn_select": 0, "fused_block1_alpha": n,
+                            "fused_block1_alpha_bwd": n,
+                            "fused_block1_alpha_color": 0,
+                            "fused_block1_alpha_color_march": 0,
+                            "fused_knn_select_tiled": 0, **NO_GATHER}, \
+            launches
+        if profile:
+            profile_call(f"phase 21: profiled step, {what}:",
+                         lambda: model.optimize(batch))
+        return over
+
+    for v in GATHER_VJPS:
+        over = steps(dataclasses.replace(cfg, gather_vjp=v),
+                     f"bf16 table, --gather_vjp {v}",
+                     profile=v in ("scatter", "sorted"))
+        if v == "batchdedup":
+            assert over == 0, over
+        if v == "raydedup":
+            log(f"phase 21: raydedup at gvjp_U {cfg.gvjp_U}: {over} of "
+                f"{R * T_rows} neighbour rows dropped in the last step "
+                f"({over / (R * T_rows):.3%})")
+
+    # stochastic rounding: the draws land on the bf16 grid, and average to
+    # the master
+    with torch.no_grad():
+        table = ren.attribute_table(model.cloud, "float32")
+        b = table.view(torch.int32)
+        down = (b & -65536).view(torch.float32)
+        up = ((b & -65536) + 65536).view(torch.float32)
+        acc = torch.zeros_like(table, dtype=torch.float64)
+        sr_cfg = dataclasses.replace(cfg, gather_round="stochastic")
+        gen = torch.Generator(device=dev).manual_seed(21)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SR_DRAWS):
+            bits = ren.draw_render_noise(
+                gen, sr_cfg, 1, R, table_shape=tuple(table.shape))["sr_bits"]
+            r = stochastic_round_bf16(table, bits).float()
+            assert bool(((r == down) | (r == up)).all())
+            acc += r
+        torch.cuda.synchronize()
+        draw_ms = (time.perf_counter() - t0) * 1e3 / SR_DRAWS
+        ulp = (up - down).double()
+        err = (acc / SR_DRAWS - table.double()) / ulp
+        rms, bias = float(err.pow(2).mean().sqrt()), float(err.mean())
+        near = float(((table.to(torch.bfloat16).double() - table.double())
+                      / ulp).pow(2).mean().sqrt())
+    log(f"phase 21: stochastic rounding of the {tuple(table.shape)} table: "
+        f"every draw on x's bf16 neighbours; {SR_DRAWS} draws' mean, RMS of "
+        f"(mean - x) / ulp {rms:.4f} (limit {SR_RMS_LIMIT:.4f}; nearest "
+        f"{near:.4f}), mean {bias:.2e}; a draw and its rounding "
+        f"{draw_ms:.2f} ms [{SMI}]")
+    assert rms <= SR_RMS_LIMIT and near > SR_RMS_LIMIT
+    del acc, err, ulp, down, up, r, bits, b
+    torch.cuda.empty_cache()
+    steps(sr_cfg, "bf16 table, --gather_round stochastic")
+
+    # int8: the quantization on the card is the CPU's
+    with torch.no_grad():
+        q, scale, zero = quantize_table_int8(table, model.cloud.active)
+        cq, cscale, czero = quantize_table_int8(table.cpu(),
+                                                model.cloud.active.cpu())
+    assert torch.equal(q.cpu(), cq) and torch.equal(scale.cpu(), cscale)
+    assert torch.equal(zero.cpu(), czero)
+    log(f"phase 21: int8 quantization of the table on the card equals the "
+        f"CPU's (q {tuple(q.shape)}, scale, zero); q range "
+        f"[{int(q.min())}, {int(q.max())}]")
+    del table, q, scale, zero, cq, cscale, czero
+    torch.cuda.empty_cache()
+    steps(dataclasses.replace(cfg, gather_dtype="int8"),
+          "--gather_dtype int8", profile=True)
+    del model, batch
+    torch.cuda.empty_cache()
+
+    # --knn_mode approx: an eval frame through the exact select
+    topt = TestOptions().parse(TEST_DEFAULT_FLAGS + ["--knn_mode", "approx"])
+    model = SceneModel(topt)
+    model.load_checkpoint(model.resolve_resume())
+    assert model.cfg.knn_mode == "approx"
+    store = {}
+    qfn = capture_first_call(ren, "query_neighbors", store)
+    torch.cuda.synchronize()
+    reset_launches()
+    try:
+        t0 = time.perf_counter()
+        col_a = model.render_image(item)
+        frame_s = time.perf_counter() - t0
+    finally:
+        ren.query_neighbors = qfn
+    launches = read_launches()
+    args, kw = store["query_neighbors"]
+    with torch.no_grad():
+        a = qfn(*args, **kw).sample_pidx
+        e = qfn(*args, **dict(kw, knn_mode="exact")).sample_pidx
+    diff = float(np.abs(col_a - col).max())
+    chunks = -(-len(item["raydir"]) // 9216)
+    log(f"phase 21: --knn_mode approx frame {W_IMG}x{H_IMG} in "
+        f"{frame_s * 1e3:.1f} ms, launches {launches}; first chunk's ids "
+        f"equal the exact select's ({int((a >= 0).sum())} neighbours); max "
+        f"|diff| to the phase-4 frame {diff:.3e} [{SMI}]")
+    assert torch.equal(a, e)
+    assert launches["fused_knn_select"] == 0, launches
+    assert launches["fused_block1_alpha"] == chunks, launches
+    assert diff <= RENDER_ATOL, diff
+    del model
+    torch.cuda.empty_cache()
+
+    # train_ft through the CLI with the opt-in gathers
+    ck = os.path.join(build, "smoke_gathers")
+    expr = os.path.join(ck, "ft")
+    os.makedirs(expr, exist_ok=True)
+    for ext in ("", ".meta.json"):
+        shutil.copy(os.path.join(build, "smoke", "0_net_ray_marching.npz"
+                                 + ext),
+                    os.path.join(expr, "0_net_ray_marching.npz" + ext))
+    flags = TRAIN_FLAGS + [
+        "--gather_dtype", "bfloat16", "--gather_round", "stochastic",
+        "--gather_vjp", "batchdedup",
+        "--name", "ft", "--checkpoints_dir", ck,
+        "--data_root", os.path.join(build, "smoke_scans") + "/",
+        "--scan", "scene_smoke", "--maximum_step", "10",
+        "--save_iter_freq", "10", "--test_num", "1", "--test_freq", "0",
+        "--print_freq", "5"]
+    reset_launches()
+    tee = Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        train_ft.main(flags)
+    torch.cuda.synchronize()
+    out = tee.buf.getvalue()
+    launches = read_launches()
+    log(f"phase 21: train_ft (bf16, stochastic, batchdedup) ran 10 steps, "
+        f"saved, exported and tested in {time.perf_counter() - t0:.1f} s; "
+        f"launches {launches}")
+    for f in ("10_net_ray_marching.npz", "10_net_ray_marching.pth"):
+        assert os.path.exists(os.path.join(expr, f)), f
+    assert "training from step 0 to 10" in out
+    over = [l_ for l_ in out.splitlines() if "gvjp_overflow" in l_]
+    assert over and all("gvjp_overflow: 0.000" in l_ for l_ in over), over
+    psnr_lines = [l_ for l_ in out.splitlines() if "psnr:" in l_]
+    assert psnr_lines and all(np.isfinite(float(
+        l_.split("psnr:")[1].split()[0])) for l_ in psnr_lines), psnr_lines
+    assert launches["fused_block1_alpha_bwd"] == 10, launches
+    log(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase21_alone():
+    """Phase 21 on its own (`python -c "import chip_smoke as cs;
+    cs.phase21_alone()"`): the card, the kernels, phase 3's scene and
+    phase 4's frame, phase 8's export, then phase 21."""
+    import torch
+    from sgnerf_tpu_torch.ops import _cuda
+    from sgnerf_tpu_torch.options import TestOptions
+    global SMI
+    SMI = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    log(SMI)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build = os.path.join(REPO, "build")
+    for d in ("smoke", "smoke_scans", "smoke_gathers"):
+        shutil.rmtree(os.path.join(build, d), ignore_errors=True)
+    log(f"kernels built in {_cuda.build_all():.1f} s")
+    model, _ = build_scene(TestOptions().parse(TEST_DEFAULT_FLAGS), N_POINTS)
+    item = frame_item()
+    col = model.render_image(item)
+    del model
+    torch.cuda.empty_cache()
+    write_scannet_export(os.path.join(build, "smoke_scans"))
+    phase21_gathers(item, col)
 
 def render_rays_of(model, kw):
     """coarse_raycolor of model on phase20_edit's 512 rays."""

@@ -15,10 +15,20 @@ perspective-space path (`--wcoord_query 0`): the query runs on a grid of
 the frame's perspective coords (ops/query_pers.py), with the train-time
 shading-point jitter in that space; shading is the world path's.
 Training rebuilds the attribute table from the
-cloud's live tensors each call: the gather's transpose is a scatter-add (`index_add_`)
-into that table (the JAX package's `gather_vjp="scatter"`), or with
-`gather_vjp="sorted"` a sort and segment sum in float32 (`gather_rows`).
-Only a float32 table trains.
+cloud's live tensors each call, in float32 or, with `--gather_dtype
+bfloat16`, cast to bf16 (to nearest, or stochastically with
+`--gather_round stochastic` on the noise's `sr_bits`); `--gather_dtype int8`
+gathers a per-channel int8 copy of the float32 table in the training
+forward (`gather_rows_int8`) and renders eval frames from the bf16 table.
+The gather's transpose (`--gather_vjp`, the JAX package's six) is a
+scatter-add in the table's dtype (`index_add_`, "scatter"), a sort and
+float32 segment sum ("sorted", `gather_rows`), a float32 scatter-add
+("f32"), a float32 scatter over spread_J table copies ("spread"), a
+per-ray dedup of the cotangent rows through a one-hot product ("raydedup")
+or a whole-batch dedup into gvjp_batch_U rows ("batchdedup"); the last two
+count the rows they would drop (`gvjp_overflow` in the output, then in the
+losses). Each is plain PyTorch: the JAX package computes them outside any
+Pallas kernel.
 
 `prob=True` (the growing probes, runtime/growing.py) adds per-ray stats at
 the sample of largest opacity: its opacity and position, the distance to
@@ -33,6 +43,7 @@ gather, and the plain gather has no cap to overflow.
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -43,6 +54,8 @@ from ..ops.pallas_gather import sorted_segment_sum
 from ..ops.march import (BLEND_FUNCS, RENDER_FUNCS, TONE_MAPS, ray_march,
                          ray_dist_from_z)
 from ..ops.query import query_neighbors
+from ..ops.quant import (dequantize_rows, quantize_table_int8,
+                         stochastic_round_bf16)
 from ..ops.query_pers import perspective_grid, query_perspective_grid
 from ..ops.raygen import LAZY_RAYGENS, find_ray_generation_method
 from .aggregator import AggregatorConfig, aggregate
@@ -66,12 +79,23 @@ class RenderConfig:
     raydist_mode_unit: int = 1
     knn_mode: str = "exact"          # "fused": kernel K1 (bf16 cache only);
     #                                  "dedup": kernel K6 over per-tile
-    #                                  distinct cache rows (raster rays)
+    #                                  distinct cache rows (raster rays);
+    #                                  "approx" takes the exact path
     dedup_tile: int = 64             # rays per dedup tile (consecutive)
     dedup_cap: int = 160             # distinct cache rows per tile
-    gather_dtype: str = "float32"    # "bfloat16" attribute table
+    gather_dtype: str = "float32"    # "bfloat16" attribute table; "int8"
+    #                                  the training forward's gather
+    #                                  (gather_rows_int8), bf16 at eval
+    gather_round: str = "nearest"    # bf16 table cast when training:
+    #                                  "stochastic" (noise's sr_bits)
     gather_vjp: str = "scatter"      # attribute-gather transpose: "scatter"
-    #                                  (index_add_) or "sorted" (gather_rows)
+    #                                  (index_add_), "sorted", "f32",
+    #                                  "spread", "raydedup", "batchdedup"
+    spread_J: int = 4                # table copies of "spread"
+    gvjp_rows: int = 0               # "raydedup": rows a tile (0 = SR*K)
+    gvjp_U: int = 128                # ... distinct ids kept a tile
+    gvjp_batch_U: int = 0            # "batchdedup": distinct ids kept a
+    #                                  batch (0 = max(4096, 2/3 of rows))
     compute_depth: int = 0           # emit coarse_depth
     semantic_guidance: int = 0       # guided train-time query; the 96-d
     #                                  sem_embedding joins the attribute
@@ -87,22 +111,39 @@ class RenderConfig:
         return self.radius_limit_scale * max(self.vsize[0], self.vsize[1])
 
 
+def table_width(cloud: NeuralPointCloud, semantic: bool = False) -> int:
+    """Columns of the packed attribute table."""
+    return 10 + cloud.embedding.shape[-1] + (
+        cloud.sem_embedding.shape[-1] if semantic else 0)
+
+
 def attribute_table(cloud: NeuralPointCloud, gather_dtype: str,
-                    semantic: bool = False) -> torch.Tensor:
+                    semantic: bool = False, is_train: bool = False,
+                    sr_bits: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-point attributes packed into one (N, 10+F[+S]) row table
-    [xyz | embedding | color | dir | conf [| sem_embedding]], in bf16 when
-    asked: one gather serves every attribute."""
+    [xyz | embedding | color | dir | conf [| sem_embedding]]: one gather
+    serves every attribute. bf16 when asked, and for int8 outside training
+    (eval renders read the bf16 table); stochastically rounded by `sr_bits`
+    when given. The training forward's int8 gather quantizes the float32
+    table itself."""
     packed = torch.cat([cloud.xyz, cloud.embedding, cloud.color, cloud.dir,
                         cloud.conf] + ([cloud.sem_embedding] if semantic
                                        else []), dim=-1)
-    return packed.to(torch.bfloat16) if gather_dtype == "bfloat16" else packed
+    if gather_dtype == "bfloat16" or (gather_dtype == "int8"
+                                      and not is_train):
+        if sr_bits is not None:
+            return stochastic_round_bf16(packed, sr_bits)
+        return packed.to(torch.bfloat16)
+    return packed
 
 
 def draw_render_noise(generator: torch.Generator, cfg: RenderConfig, B: int,
                       R: int, is_train: bool = True,
                       grid: Optional[PointGrid] = None,
                       guidance: bool = False,
-                      perspective: bool = False) -> Dict[str, torch.Tensor]:
+                      perspective: bool = False,
+                      table_shape: Optional[Tuple[int, int]] = None
+                      ) -> Dict[str, torch.Tensor]:
     """Every random tensor the render forward draws, from `generator` (on
     its device): raygen_u (B,R,D) sample-depth jitter uniforms when
     training with jitter > 0 (in [-1, 1) for the cube generator); on the
@@ -110,9 +151,12 @@ def draw_render_noise(generator: torch.Generator, cfg: RenderConfig, B: int,
     (uniform or normal, as cfg.shpnt_jitter says), when training; else with
     `guidance`, guide_u, the semantic acceptance uniforms of the
     candidates' shape: (B,R,SR,C) on the cache path, (B,R,SR,k^3,P) on the
-    bucket path. Counterpart of the JAX draw_render_noise; the numbers
-    differ from JAX's (the generators differ), so parity tests pass JAX's
-    noise in."""
+    bucket path; sr_bits, int16 draws of the attribute table's shape
+    `table_shape` (16 random bits an element, as JAX draws them), when
+    training through a stochastically rounded bf16 table. Counterpart of
+    the JAX draw_render_noise, whose sr_bits are `jax.random.bits(noise
+    ["kg"], shape, uint16)`; the numbers differ from JAX's (the generators
+    differ), so parity tests pass JAX's noise in."""
     noise: Dict[str, torch.Tensor] = {}
     dev = generator.device
     if is_train and cfg.jitter > 0:
@@ -135,6 +179,12 @@ def draw_render_noise(generator: torch.Generator, cfg: RenderConfig, B: int,
             ks = spec.kernel_size
             shape = (B, R, cfg.SR, ks[0] * ks[1] * ks[2], spec.P)
         noise["guide_u"] = torch.rand(shape, generator=generator, device=dev)
+    if (is_train and table_shape is not None
+            and cfg.gather_dtype == "bfloat16"
+            and cfg.gather_round == "stochastic"):
+        noise["sr_bits"] = torch.randint(-32768, 32768, tuple(table_shape),
+                                         generator=generator, device=dev,
+                                         dtype=torch.int16)
     return noise
 
 
@@ -149,44 +199,137 @@ def _ray_samples(cfg: RenderConfig, campos, raydir, near, far, noise,
     return raypos, ts
 
 
-class _GatherRows(torch.autograd.Function):
-    """table[idx] whose transpose is a scatter-add, `index_add_` (the JAX
-    package's default gather_vjp="scatter"). Autograd's own transpose of
-    advanced indexing sorts the indices and walks each run of duplicates
-    in one thread; every masked neighbour slot reads row 0, so that run
-    holds most of a training batch's rows and the sort-based transpose
-    took ~0.1 s a step at 1024 rays on the card. index_add_ sums the
-    duplicates with atomics on CUDA (in no fixed order) and in index order
-    on the CPU."""
+def scatter_transpose(flat, rows, n):
+    """gather_vjp "scatter": rows (M,C) summed by id flat (M,) into an
+    (n,C) table in rows' dtype with `index_add_` (the JAX package's default
+    transpose of `t[i]`). Autograd's own transpose of advanced indexing
+    sorts the ids and walks each run of duplicates in one thread; every
+    masked neighbour slot reads row 0, so that run holds most of a batch's
+    rows and the sort-based transpose took ~0.1 s a step at 1024 rays on
+    the card. index_add_ sums duplicates with atomics on CUDA (in no fixed
+    order; in bf16 for a bf16 table) and in index order on the CPU."""
+    return rows.new_zeros((n, rows.shape[1])).index_add_(0, flat, rows)
+
+
+def sorted_transpose(flat, rows, n):
+    """"sorted" (the JAX package's `gather_rows`): the rows sorted by id and
+    each run summed in float32, cast to rows' dtype once."""
+    return sorted_segment_sum(flat, rows.float(), n).to(rows.dtype)
+
+
+def f32_transpose(flat, rows, n):
+    """"f32" (`gather_rows_f32acc`): a float32 scatter-add, cast once."""
+    return scatter_transpose(flat, rows.float(), n).to(rows.dtype)
+
+
+def spread_transpose(flat, rows, n, J: int, K: int):
+    """"spread" (`make_gather_rows_spread`): row i scatters in float32
+    into table copy (i // K) % J (consecutive shading points rotate
+    copies); the (J,n,C) copies are summed, then cast once. A J*n*C float32
+    transient."""
+    m, C = rows.shape
+    lane = torch.div(torch.arange(m, device=flat.device), K,
+                     rounding_mode="floor") % J
+    dt = scatter_transpose(lane * n + flat, rows.float(), J * n)
+    return dt.view(J, n, C).sum(dim=0).to(rows.dtype)
+
+
+def _sorted_runs(ids):
+    """ids sorted along the last axis, and where each run of equal ids
+    starts."""
+    s = torch.sort(ids, dim=-1).values
+    first = torch.ones_like(s, dtype=torch.bool)
+    first[..., 1:] = s[..., 1:] != s[..., :-1]
+    return s, first
+
+
+def raydedup_transpose(flat, rows, n, T_rows: int, U: int):
+    """"raydedup" (`make_gather_rows_dedup`): per tile of T_rows
+    consecutive rows (one ray at T_rows = SR*K), the first U distinct ids
+    (ascending; the ids past them drop, `dedup_overflow_count` counts their
+    rows), each tile's duplicate rows summed into its slot by a one-hot
+    product in float32 (1.0*v terms, exact; cuBLAS runs IEEE float32 as
+    PyTorch's default leaves it, which the port never changes), then one
+    scatter-add of tiles*U rows in rows' dtype."""
+    U = min(U, T_rows)
+    M, C = rows.shape
+    assert M % T_rows == 0, (M, T_rows)
+    NT = M // T_rows
+    ids2 = flat.reshape(NT, T_rows)
+    s, first = _sorted_runs(ids2)
+    pos = torch.arange(T_rows, device=flat.device)
+    score = torch.where(first, T_rows - pos, -1)
+    # the positive scores are distinct, so the U largest are the first U
+    # run starts in order; the rest tie at -1, and torch.topk may return
+    # them in any order: `ok` (not that order) makes them the sentinel n
+    top, topp = torch.topk(score, U, dim=1)
+    uniq = torch.where(top > 0, torch.gather(s, 1, topp), n)
+    inv = torch.searchsorted(uniq, ids2)
+    invc = inv.clamp(0, U - 1)
+    hit = torch.gather(uniq, 1, invc) == ids2
+    onehot = rows.new_zeros((NT, T_rows, U), dtype=torch.float32).scatter_(
+        2, invc[..., None], hit[..., None].to(torch.float32))   # (NT,T,U)
+    agg = torch.einsum("ntu,ntc->nuc", onehot,
+                       rows.float().reshape(NT, T_rows, C))
+    return scatter_transpose(uniq.clamp(0, n - 1).reshape(-1),
+                             agg.reshape(-1, C).to(rows.dtype), n)
+
+
+def batchdedup_transpose(flat, rows, n, U_cap: int):
+    """"batchdedup" (`make_gather_rows_batchdedup`): the batch's distinct
+    ids ranked by a sort, the first U_cap of them kept (the rest drop,
+    `batchdedup_overflow_count` counts them), the rows summed by rank in
+    float32 into U_cap rows, then one scatter-add of those rows, cast to
+    rows' dtype, into the table. JAX drops the out-of-range ranks and ids
+    (`mode="drop"`); here they land in a spare row that is cut off."""
+    s, first = _sorted_runs(flat)
+    rank_sorted = torch.cumsum(first, 0) - 1
+    # uniq[r] = the id of rank r (duplicate writes carry equal values);
+    # slot U_cap is the spare, the slots past the distinct count hold n
+    uniq = torch.full((U_cap + 1,), n, dtype=flat.dtype, device=flat.device)
+    uniq[rank_sorted.clamp(max=U_cap)] = s
+    uniq = uniq[:U_cap]
+    rank = torch.searchsorted(uniq, flat)        # U_cap past the kept ids
+    compact = scatter_transpose(rank, rows.float(), U_cap + 1)[:U_cap]
+    return scatter_transpose(uniq, compact.to(rows.dtype), n + 1)[:n]
+
+
+def batchdedup_overflow_count(pid: torch.Tensor, U_cap: int) -> torch.Tensor:
+    """Distinct ids past batchdedup's U_cap (their gradient rows drop)."""
+    n_uniq = _sorted_runs(pid.reshape(-1).clamp(min=0))[1].sum()
+    return (n_uniq - U_cap).clamp(min=0).to(torch.int32)
+
+
+def dedup_overflow_count(pid: torch.Tensor, T_rows: int,
+                         U: int) -> torch.Tensor:
+    """Neighbour rows whose gradient raydedup drops (distinct-id rank >= U
+    within a tile of T_rows); -1 when the rows do not tile."""
+    flat = pid.reshape(-1)
+    M = flat.shape[0]
+    if M % T_rows:
+        return torch.tensor(-1, dtype=torch.int32, device=pid.device)
+    _, first = _sorted_runs(flat.clamp(min=0).reshape(M // T_rows, T_rows))
+    rank = torch.cumsum(first, dim=1) - 1
+    return (rank >= U).sum().to(torch.int32)
+
+
+class _Gather(torch.autograd.Function):
+    """table (N,C) [idx] whose VJP is `transpose(flat_idx, cotangent rows
+    (M,C), N)` -> (N,C) in the cotangent's dtype."""
 
     @staticmethod
-    def forward(ctx, table, idx):
+    def forward(ctx, table, idx, transpose):
         ctx.save_for_backward(idx)
-        ctx.n_rows = table.shape[0]
-        flat = idx.reshape(-1)
-        return table.index_select(0, flat).reshape(
+        ctx.n_rows, ctx.transpose = table.shape[0], transpose
+        return table.index_select(0, idx.reshape(-1)).reshape(
             idx.shape + table.shape[1:])
 
     @staticmethod
     def backward(ctx, g):
         idx, = ctx.saved_tensors
         flat = idx.reshape(-1)
-        gt = g.new_zeros((ctx.n_rows,) + g.shape[idx.dim():])
-        gt.index_add_(0, flat, g.reshape((flat.shape[0],) + gt.shape[1:]))
-        return gt, None
-
-
-class _GatherRowsSorted(_GatherRows):
-    """table[idx] whose transpose is a sort and a float32 segment sum."""
-
-    @staticmethod
-    def backward(ctx, g):
-        idx, = ctx.saved_tensors
-        flat = idx.reshape(-1)
-        rows = g.reshape((flat.shape[0], -1)).to(torch.float32)
-        gt = sorted_segment_sum(flat, rows, ctx.n_rows)
-        return gt.reshape((ctx.n_rows,) + g.shape[idx.dim():]).to(g.dtype), \
-            None
+        gt = ctx.transpose(flat, g.reshape(flat.shape[0], -1), ctx.n_rows)
+        return gt.reshape((ctx.n_rows,) + g.shape[idx.dim():]), None, None
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -196,7 +339,96 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     duplicate ids are summed without bf16 rounding between terms. Unlike
     K7's transpose (`ops/pallas_gather.py`), which sums in the cotangent's
     own dtype; the two share the sort and segment step."""
-    return _GatherRowsSorted.apply(table, idx)
+    return _Gather.apply(table, idx, sorted_transpose)
+
+
+class _GatherInt8(torch.autograd.Function):
+    """The training forward's int8 gather (the JAX package's
+    `gather_rows_int8`): the float32 table quantized per channel over the
+    active rows, int8 rows gathered, dequantized to float32; the VJP is a
+    bf16 scatter-add and one upcast to float32, the bf16 table's default
+    transpose. The float32 master takes the gradient."""
+
+    @staticmethod
+    def forward(ctx, table, idx, active):
+        ctx.save_for_backward(idx)
+        ctx.n_rows = table.shape[0]
+        q, scale, zero = quantize_table_int8(table, active)
+        rows = q.index_select(0, idx.reshape(-1))
+        return dequantize_rows(rows, scale, zero).reshape(
+            idx.shape + table.shape[1:])
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        flat = idx.reshape(-1)
+        gt = scatter_transpose(
+            flat, g.reshape(flat.shape[0], -1).to(torch.bfloat16),
+            ctx.n_rows)
+        return gt.float().reshape((ctx.n_rows,) + g.shape[idx.dim():]), \
+            None, None
+
+
+def gather_rows_int8(table: torch.Tensor, idx: torch.Tensor,
+                     active: torch.Tensor) -> torch.Tensor:
+    """table (N,C) float32 [idx] through its int8 quantization (quant.py);
+    float32 rows out."""
+    return _GatherInt8.apply(table, idx, active)
+
+
+def _dedup_caps(cfg: "RenderConfig", rows: int):
+    """raydedup's rows a tile, and batchdedup's distinct-id slots for a
+    batch of `rows` neighbour rows."""
+    return (cfg.gvjp_rows or cfg.SR * cfg.K,
+            cfg.gvjp_batch_U or max(4096, rows * 2 // 3))
+
+
+def gather_transpose(cfg: "RenderConfig", rows: int):
+    """The transpose `--gather_vjp` names (the JAX package's dispatch), for
+    a batch of `rows` neighbour rows."""
+    v = cfg.gather_vjp
+    T_rows, U_cap = _dedup_caps(cfg, rows)
+    if v == "sorted":
+        return sorted_transpose
+    if v == "f32":
+        return f32_transpose
+    if v == "spread":
+        return partial(spread_transpose, J=cfg.spread_J, K=cfg.K)
+    if v == "raydedup":
+        return partial(raydedup_transpose, T_rows=T_rows, U=cfg.gvjp_U)
+    if v == "batchdedup":
+        return partial(batchdedup_transpose, U_cap=U_cap)
+    return scatter_transpose
+
+
+def gather_overflow(cfg: "RenderConfig", pid: torch.Tensor):
+    """The neighbour rows (raydedup) or distinct ids (batchdedup) whose
+    gradient the training transpose drops; None for the other four."""
+    T_rows, U_cap = _dedup_caps(cfg, pid.numel())
+    if cfg.gather_vjp == "raydedup":
+        return dedup_overflow_count(pid, T_rows, cfg.gvjp_U)
+    if cfg.gather_vjp == "batchdedup":
+        return batchdedup_overflow_count(pid, U_cap)
+    return None
+
+
+def _table_shape(cloud: NeuralPointCloud, cfg: RenderConfig):
+    return (cloud.capacity, table_width(cloud, bool(cfg.semantic_guidance)))
+
+
+def _table(cloud: NeuralPointCloud, cfg: RenderConfig, noise, is_train):
+    """The step's attribute table: stochastically rounded on the noise's
+    sr_bits when training with --gather_round stochastic."""
+    sr_bits = None
+    if (is_train and cfg.gather_dtype == "bfloat16"
+            and cfg.gather_round == "stochastic"):
+        sr_bits = noise.get("sr_bits")
+        if sr_bits is None:
+            raise ValueError("--gather_round stochastic trains on the "
+                             "noise's sr_bits (draw_render_noise with "
+                             "table_shape)")
+    return attribute_table(cloud, cfg.gather_dtype,
+                           bool(cfg.semantic_guidance), is_train, sr_bits)
 
 
 def render_rays(params: Dict, cloud: NeuralPointCloud, grid: PointGrid,
@@ -217,15 +449,12 @@ def render_rays(params: Dict, cloud: NeuralPointCloud, grid: PointGrid,
     `pixel_label` (B,R) guides the query. `prob` adds the growing probes'
     outputs."""
     B, R, _ = raydir.shape
-    if is_train and cfg.gather_dtype != "float32":
-        raise NotImplementedError(
-            f"training through --gather_dtype {cfg.gather_dtype} is not "
-            "ported yet (ROADMAP.md, queue 1 item 17); train with float32")
     use_sem = (bool(cfg.semantic_guidance) and is_train
                and pixel_label is not None)
     if noise is None and generator is not None:
         noise = draw_render_noise(generator, cfg, B, R, is_train=is_train,
-                                  grid=grid, guidance=use_sem)
+                                  grid=grid, guidance=use_sem,
+                                  table_shape=_table_shape(cloud, cfg))
     noise = noise or {}
     raypos, ray_ts = _ray_samples(cfg, campos, raydir, near, far, noise,
                                   is_train)
@@ -247,8 +476,7 @@ def render_rays(params: Dict, cloud: NeuralPointCloud, grid: PointGrid,
                                            else None),
                         guide_u=noise.get("guide_u"))
     if table is None or is_train:
-        table = attribute_table(cloud, cfg.gather_dtype,
-                                bool(cfg.semantic_guidance))
+        table = _table(cloud, cfg, noise, is_train)
     return _shade_and_march(params, cloud, cfg, table, q.sample_pidx,
                             q.sample_loc_w, q.ray_mask, campos, raydir,
                             camrotc2w, bg_color, is_train, prob)
@@ -273,13 +501,10 @@ def render_rays_perspective(params: Dict, cloud: NeuralPointCloud, pspec,
     noise's `shade_u` (reference query_point_indices.py:96: uniform within
     +-vsize_z/2; gaussian, std vsize_z/4 clipped to +-vsize_z/2)."""
     B, R, _ = raydir.shape
-    if is_train and cfg.gather_dtype != "float32":
-        raise NotImplementedError(
-            f"training through --gather_dtype {cfg.gather_dtype} is not "
-            "ported yet (ROADMAP.md, queue 1 item 17); train with float32")
     if noise is None and generator is not None:
         noise = draw_render_noise(generator, cfg, B, R, is_train=is_train,
-                                  perspective=True)
+                                  perspective=True,
+                                  table_shape=_table_shape(cloud, cfg))
     noise = noise or {}
     raypos, _ = _ray_samples(cfg, campos, raydir, near, far, noise, is_train)
     if pgrid is None:
@@ -304,8 +529,7 @@ def render_rays_perspective(params: Dict, cloud: NeuralPointCloud, pspec,
     loc_w = torch.where(res.sample_loc_mask[..., None], loc_w,
                         torch.zeros_like(loc_w))
     if table is None or is_train:
-        table = attribute_table(cloud, cfg.gather_dtype,
-                                bool(cfg.semantic_guidance))
+        table = _table(cloud, cfg, noise, is_train)
     return _shade_and_march(params, cloud, cfg, table, res.sample_pidx,
                             loc_w, res.ray_mask, campos, raydir, camrotc2w,
                             bg_color, is_train)
@@ -313,18 +537,32 @@ def render_rays_perspective(params: Dict, cloud: NeuralPointCloud, pspec,
 
 def gather_and_aggregate(params, cloud, cfg: RenderConfig, table, sample_pidx,
                          sample_loc_w, campos, raydir, camrotc2w,
-                         fuse_march=False):
+                         fuse_march=False, is_train=False):
     """Neighbour-attribute gather + per-neighbour aggregation. Returns
     (decoded (B,R,SR,4), ray_valid, weight, conf_coefficient, sample_loc
     (perspective coords), sampled: the gathered xyz, embedding, color, dir
-    and conf (B,R,SR,K,.) for the growing probes); with `fuse_march` the
-    aggregation marches in kernel K5 and decoded is {"march": (B,R,4)}."""
+    and conf (B,R,SR,K,.) for the growing probes, and when training under
+    raydedup or batchdedup the rows that transpose drops, gvjp_overflow);
+    with `fuse_march` the aggregation marches in kernel K5 and decoded is
+    {"march": (B,R,4)}."""
     B, R, _ = raydir.shape
     agg = cfg.agg
     mask = sample_pidx >= 0
     pid = sample_pidx.clamp(0, cloud.capacity - 1).long()
-    take = gather_rows if cfg.gather_vjp == "sorted" else _GatherRows.apply
-    g = take(table, pid).to(torch.float32)
+    overflow = None
+    if cfg.gather_dtype == "int8" and is_train:
+        # int8 carries its own transpose (configs_from_opt refuses it
+        # beside another gather_vjp too)
+        if cfg.gather_vjp != "scatter":
+            raise ValueError("gather_dtype=int8 requires gather_vjp=scatter")
+        g = gather_rows_int8(table, pid, cloud.active)
+    else:
+        g = _Gather.apply(table, pid, gather_transpose(
+            cfg, pid.numel())).to(torch.float32)
+        if is_train:
+            # surfaced into the losses, so the periodic prints show when a
+            # config makes the transpose lossy
+            overflow = gather_overflow(cfg, pid)
     F = cloud.embedding.shape[-1]
     # zero the padding gathers so masked rows stay finite
     sampled_xyz = g[..., 0:3] * mask[..., None]
@@ -370,6 +608,8 @@ def gather_and_aggregate(params, cloud, cfg: RenderConfig, table, sample_pidx,
     sampled = {"xyz": sampled_xyz, "embedding": sampled_embedding,
                "color": sampled_color, "dir": sampled_dir,
                "conf": sampled_conf}
+    if overflow is not None:
+        sampled["gvjp_overflow"] = overflow
     return decoded, ray_valid, weight, conf_coefficient, sample_loc, sampled
 
 
@@ -389,7 +629,7 @@ def _shade_and_march(params, cloud, cfg: RenderConfig, table, sample_pidx,
     decoded, ray_valid, weight, conf_coefficient, sample_loc, sampled = \
         gather_and_aggregate(params, cloud, cfg, table, sample_pidx,
                              sample_loc_w, campos, raydir, camrotc2w,
-                             fuse_march=fuse_march)
+                             fuse_march=fuse_march, is_train=is_train)
     queried_shading = (~ray_valid.any(dim=-1, keepdim=True)).to(
         torch.float32).expand(B, R, 3)
     if isinstance(decoded, dict):                 # K5 marched in-kernel
@@ -420,6 +660,8 @@ def _shade_and_march(params, cloud, cfg: RenderConfig, table, sample_pidx,
         "blend_weight": blend_weight.detach(),
         "conf_coefficient": conf_coefficient,
     }
+    if "gvjp_overflow" in sampled:
+        output["gvjp_overflow"] = sampled["gvjp_overflow"]
     if cfg.compute_depth:
         # alpha-blend-weighted mean camera-space depth (reference
         # return_depth, neural_points_volumetric_model.py:620-624)

@@ -209,6 +209,11 @@ def loss_and_grads(state: TrainState, grid, cfg: RenderConfig,
             gt_depth=batch.get("gt_depth"), gt_mask=batch.get("gt_mask"),
             sparse_loss_weight=tcfg.sparse_loss_weight,
             zero_epsilon=tcfg.zero_epsilon)
+        if "gvjp_overflow" in out:
+            # gather_vjp raydedup/batchdedup: the rows the transpose drops,
+            # in the losses so the periodic prints show a lossy config
+            losses = dict(losses, gvjp_overflow=out["gvjp_overflow"].detach()
+                          .to(torch.float32))
         grads = torch.autograd.grad(total, leaves + pts, allow_unused=True)
     finally:
         for t in leaves + pts:

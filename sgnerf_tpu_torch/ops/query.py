@@ -199,7 +199,9 @@ def query_neighbors(grid: PointGrid, raypos: torch.Tensor, K: int, SR: int,
     (at most `dedup_cap` rows a tile) and runs kernel K6 on them: the same
     ids as "fused" wherever a tile holds no more than dedup_cap distinct
     rows, no neighbours for the shading points past the cap; "exact" is
-    the XLA-path statement.
+    the XLA-path statement, and "approx" takes it too: the JAX package's
+    `jax.lax.approx_max_k` is approximate on the TPU only and exact
+    elsewhere, so the exact select is its counterpart off the TPU.
 
     Semantic guidance (ray_label (B,R), the points' label (N,) and
     label_prob (N,C), guide_u of the candidates' shape) takes the exact

@@ -14,9 +14,14 @@ what the machine happens to have: on CUDA the kernels run (fused KNN select
 with a bf16 cache, fused aggregator forward and backward; `--fused_color
 on` and `--fused_march on` opt into K4 and K5 as in the JAX package), on
 the CPU their plain PyTorch versions. `knn_mode="dedup"` (K6) is reached
-through `RenderConfig` only, as in the JAX package: the CLI refuses it.
-Flags outside the ported slices raise NotImplementedError naming the
-ROADMAP item that ports them.
+through `RenderConfig` only, as in the JAX package: the CLI refuses it;
+`--knn_mode approx` takes the exact select, which JAX's approx_max_k is
+off the TPU. The opt-in training gathers are the JAX package's:
+`--gather_dtype bfloat16|int8`, `--gather_round stochastic` and the six
+`--gather_vjp` transposes (scatter, sorted, f32, spread, raydedup,
+batchdedup; `models/renderer.py`), refused with JAX's ValueErrors.
+`--ray_shards`/`--scene_shards` above 1 raise NotImplementedError naming
+the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -265,14 +270,6 @@ def _check_slice(opt):
         _unsupported("--scene_shards", "item 19")
     if int(getattr(opt, "ray_shards", 0) or 0) not in (0, 1):
         _unsupported("--ray_shards", "item 18")
-    if getattr(opt, "knn_mode", "auto") == "approx":
-        _unsupported("--knn_mode approx", "item 17")
-    if opt.gather_dtype == "int8":
-        _unsupported("--gather_dtype int8", "item 17")
-    if getattr(opt, "gather_vjp", "scatter") not in ("scatter", "sorted"):
-        _unsupported(f"--gather_vjp {opt.gather_vjp}", "item 17")
-    if getattr(opt, "gather_round", "nearest") != "nearest":
-        _unsupported(f"--gather_round {opt.gather_round}", "item 17")
     for xyz_flag in ("agg_feat_xyz_mode", "agg_alpha_xyz_mode",
                      "agg_color_xyz_mode"):
         if str(getattr(opt, xyz_flag, "None")) != "None":
@@ -302,6 +299,15 @@ def configs_from_opt(opt, device=None):
     if opt.gather_dtype not in ("float32", "bfloat16", "int8"):
         raise ValueError("--gather_dtype must be float32/bfloat16/int8, "
                          f"got {opt.gather_dtype!r}")
+    gr = getattr(opt, "gather_round", "nearest")
+    if gr not in ("nearest", "stochastic"):
+        raise ValueError(
+            f"--gather_round must be nearest or stochastic, got {gr!r}")
+    gv = getattr(opt, "gather_vjp", "scatter")
+    if opt.gather_dtype == "int8" and gv != "scatter":
+        raise ValueError(
+            "--gather_dtype int8 carries its own transpose; it composes "
+            f"only with --gather_vjp scatter (got {gv!r})")
     ad = int(getattr(opt, "attr_dedup", -1))
     if ad < -1:
         raise ValueError(f"--attr_dedup must be -1 (auto) or >= 0, got {ad}")
@@ -321,7 +327,6 @@ def configs_from_opt(opt, device=None):
     fm = getattr(opt, "fused_march", "auto")
     if fm not in ("auto", "on", "off"):
         raise ValueError(f"--fused_march must be auto/on/off, got {fm!r}")
-    gv = getattr(opt, "gather_vjp", "scatter")
     if gv not in ("scatter", "sorted", "f32", "spread", "raydedup",
                   "batchdedup"):
         raise ValueError("--gather_vjp must be scatter/sorted/f32/spread/"
@@ -397,7 +402,10 @@ def configs_from_opt(opt, device=None):
         which_tonemap_func=opt.which_tonemap_func,
         raydist_mode_unit=opt.raydist_mode_unit,
         gather_dtype=opt.gather_dtype,
+        gather_round=gr,
         gather_vjp=gv,
+        gvjp_U=int(getattr(opt, "gvjp_U", 128)),
+        gvjp_batch_U=int(getattr(opt, "gvjp_batch_U", 0)),
         knn_mode=knn,
         semantic_guidance=opt.semantic_guidance,
         domain_size=float(opt.domain_size),

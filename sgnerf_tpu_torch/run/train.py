@@ -41,24 +41,20 @@ from ..models.mvs import MVSConfig, init_mvs_params
 from ..models.params import (mvs_params_from_jax, mvs_params_to_jax,
                              params_from_jax, params_to_jax)
 from ..ops.grid import compute_grid_spec
-from ..options.options import (TrainOptions, _check_slice, configs_from_opt,
+from ..options.options import (TrainOptions, configs_from_opt,
                                device_from_opt)
 from ..utils.visualizer import Visualizer
 
 
 def check_flags(opt):
     """Refuse, before any work, what this trainer cannot run."""
-    _check_slice(opt)
+    configs_from_opt(opt, device="cpu")
     if not opt.feedforward:
         raise ValueError("run/train.py is the feed-forward trainer: "
                          "pass --feedforward 1")
     if opt.ranges[0] <= -99.0:
         raise ValueError("--ranges is required for feed-forward training "
                          "(the voxel grid's spec is static)")
-    if opt.gather_dtype != "float32":
-        raise NotImplementedError(
-            f"training through --gather_dtype {opt.gather_dtype} is not "
-            "ported yet (ROADMAP.md, queue 1 item 17); train with float32")
 
 
 def _downsample_depth(depth, max_hw=(48, 64)):

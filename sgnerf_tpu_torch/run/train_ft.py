@@ -41,7 +41,7 @@ import torch
 from ..data import create_dataset
 from ..models.background import create_all_bg, plane_bg_ray
 from ..models.point_cloud import make_point_cloud
-from ..options.options import TrainOptions, _check_slice
+from ..options.options import TrainOptions, configs_from_opt
 from ..runtime.growing import probe_and_grow
 from ..runtime.scene_model import SceneModel, batch_to_device
 from ..runtime.semantic import SemanticDriver
@@ -86,12 +86,9 @@ class ItemPrefetcher:
 
 
 def check_flags(opt):
-    """Refuse, before any work, what this driver does not port yet."""
-    _check_slice(opt)
-    if opt.gather_dtype != "float32":
-        raise NotImplementedError(
-            f"training through --gather_dtype {opt.gather_dtype} is not "
-            "ported yet (ROADMAP.md, queue 1 item 17); train with float32")
+    """Refuse, before any work, what this driver does not port yet and
+    what configs_from_opt refuses."""
+    configs_from_opt(opt, device="cpu")
 
 
 def run_test(model, dataset, visualizer, total_steps, num_images=None,

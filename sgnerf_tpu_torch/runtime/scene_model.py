@@ -8,7 +8,9 @@ table, `factor_rotations`), the point bootstrap from the dataset's init points
 (`setup_from_points`), the train step (`optimize`, `optimize_multi`),
 prune and grow with grid rebuild (growing's probes: runtime/growing.py),
 checkpoint save and `.pth` export, and the chunked full-frame render. The
-sharded paths come with later slices.
+sharded paths come with later slices. `--chunk_stack` is accepted and
+ignored: the JAX package renders B chunks per `lax.map` body with it, and
+here every chunk is its own plain call.
 
 `--wcoord_query 0` (the flag's default) is Point-NeRF's perspective-space
 query: the train step and the render build each frame's grid in camera

@@ -181,12 +181,14 @@ def test_sh_and_gau_consume_leading_channels():
 
 # ------------------------------------------------------ block3 train step
 
-@pytest.mark.parametrize("gather_vjp", ["scatter", "sorted"])
+@pytest.mark.parametrize("gather_vjp", ["scatter", "sorted", "f32", "spread",
+                                        "raydedup", "batchdedup"])
 def test_block3_train_step_matches_jax(gather_vjp):
     """One step of scene0000_00.sh's aggregator (block3 on colour and dir)
     with colour training on: losses, parameters and the point fields,
-    colour's gradient (through the gather's index_add_ or sorted
-    transpose) and Adam update included."""
+    colour's gradient (through each of the gather's six transposes) and
+    Adam update included; raydedup's and batchdedup's overflow counts in
+    the losses."""
     n, cap = 600, 640
     rng = np.random.default_rng(0)
     xyz = rng.normal(size=(n, 3)).astype(np.float32)

@@ -186,9 +186,76 @@ def test_scene_model_device_comes_from_gpu_ids():
     ["--gather_vjp", "batchdedup"],
 ])
 def test_flags_outside_the_slice_raise(flags):
+    """--scene_shards/--ray_shards above 1 (queue 1 items 18-19) raise;
+    the item-17 flags among these cases, refused until the port took
+    them, resolve to the RenderConfig fields the JAX package's
+    configs_from_opt sets for the same flags."""
     from sgnerf_tpu_torch.options import configs_from_opt
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        configs_from_opt(_opt(flags))
+    if any(f.endswith("_shards") for f in flags):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            configs_from_opt(_opt(flags))
+        return
+    _same_render_config(flags)
+
+
+_ITEM17_FIELDS = ("gather_dtype", "gather_round", "gather_vjp", "spread_J",
+                  "gvjp_rows", "gvjp_U", "gvjp_batch_U", "knn_mode")
+
+
+def _same_render_config(flags):
+    from sgnerf_tpu.options.options import configs_from_opt as jconfigs
+    from sgnerf_tpu_torch.options import configs_from_opt
+    opt = _opt(flags)
+    cfg, _, _ = configs_from_opt(opt, device="cpu")
+    jcfg, _, _ = jconfigs(opt)
+    for f in _ITEM17_FIELDS:
+        assert getattr(cfg, f) == getattr(jcfg, f), (f, flags)
+    return cfg
+
+
+@pytest.mark.parametrize("flags", [
+    ["--gather_dtype", "int8", "--gather_round", "stochastic"],
+    ["--gather_dtype", "float32", "--gather_vjp", "spread"],
+    ["--gather_vjp", "raydedup", "--gvjp_U", "64"],
+    ["--gather_vjp", "batchdedup", "--gvjp_batch_U", "5000"],
+    ["--gather_round", "stochastic", "--gather_vjp", "batchdedup",
+     "--knn_mode", "approx"],
+    ["--gather_vjp", "sorted", "--knn_mode", "exact"],
+])
+def test_item17_flags_resolve_as_in_the_jax_package(flags):
+    from sgnerf_tpu_torch.options import configs_from_opt
+    cfg = _same_render_config(flags)
+    card, _, _ = configs_from_opt(_opt(flags + ["--gpu_ids", "0"]))
+    # on the card the fused kernels run behind the same gathers
+    assert card.agg.fused_mlp == "cuda" and card.agg.fused_bwd == "cuda"
+    for f in _ITEM17_FIELDS[:-1]:
+        assert getattr(card, f) == getattr(cfg, f), f
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--gather_dtype", "int8", "--gather_vjp", "f32"], "int8"),
+    (["--gather_dtype", "int8", "--gather_vjp", "sorted"], "int8"),
+    (["--gather_round", "up"], "gather_round"),
+    (["--gather_vjp", "dedup"], "gather_vjp"),
+    (["--gather_dtype", "float16"], "gather_dtype"),
+])
+def test_item17_flags_refused_as_in_the_jax_package(flags, match):
+    """What the JAX package's configs_from_opt refuses with ValueError the
+    port refuses the same way, on its configs and its trainers' startup."""
+    from sgnerf_tpu.options.options import configs_from_opt as jconfigs
+    from sgnerf_tpu_torch.options import TrainOptions, configs_from_opt
+    from sgnerf_tpu_torch.run import train as ff_train
+    from sgnerf_tpu_torch.run.train_ft import check_flags
+    opt = _opt(flags)
+    for fn in (configs_from_opt, jconfigs):
+        with pytest.raises(ValueError, match=match):
+            fn(opt)
+    topt = TrainOptions().parse(flags + ["--feedforward", "1",
+                                         "--ranges", "-1", "-1", "-1",
+                                         "1", "1", "1"])
+    for fn in (check_flags, ff_train.check_flags):
+        with pytest.raises(ValueError, match=match):
+            fn(topt)
 
 
 @pytest.mark.parametrize("flag,value", [("fused_color", "on"),

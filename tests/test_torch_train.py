@@ -432,10 +432,37 @@ def test_train_ft_cli_runs_and_writes_checkpoints(scans, tmp_path):
                                    ["--gather_dtype", "int8"],
                                    ["--gather_dtype", "bfloat16"]])
 def test_train_ft_refuses_unported_flags_at_startup(scans, tmp_path, flags):
-    from sgnerf_tpu_torch.run import train_ft
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_ft.main(_train_flags(scans, str(tmp_path), flags))
-    assert not (tmp_path / "t").exists()
+    """The shard flags (queue 1 items 18-19) are refused before any work.
+    The opt-in gathers, refused until the port took them, train (int8: the
+    forward's int8 gather; bf16 with stochastic rounding and batchdedup's
+    transpose) and test_ft renders the checkpoint."""
+    import contextlib
+    import io
+    from sgnerf_tpu_torch.run import test_ft, train_ft
+    if any(f.endswith("_shards") for f in flags):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            train_ft.main(_train_flags(scans, str(tmp_path), flags))
+        assert not (tmp_path / "t").exists()
+        return
+    if flags[-1] == "bfloat16":
+        flags = flags + ["--gather_round", "stochastic",
+                         "--gather_vjp", "batchdedup"]
+    args = _train_flags(scans, str(tmp_path), flags)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        train_ft.main(args + ["--maximum_step", "2", "--save_iter_freq", "2",
+                              "--print_freq", "1", "--test_freq", "0",
+                              "--test_num", "1", "--n_threads", "1"])
+        test_ft.main(args + ["--resume_iter", "latest",
+                             "--test_num_step", "4"])
+    out = buf.getvalue()
+    assert "step: 2," in out and "training done" in out, out[-2000:]
+    assert ("gvjp_overflow: 0.000" in out) == (flags[-1] == "batchdedup"), \
+        out[-2000:]
+    assert (tmp_path / "t" / "2_net_ray_marching.npz").exists()
+    psnrs = [float(l_.split("psnr:")[1].split()[0])
+             for l_ in out.splitlines() if l_.startswith("num.")]
+    assert psnrs and np.isfinite(psnrs).all(), out[-2000:]
 
 
 def test_room_scan_is_bench_room_scan():
