@@ -199,7 +199,20 @@ fine-tune train step (the flags of scene0113_00_default.sh). Phases:
      the frame within RENDER_ATOL of phase 4's); train_ft 10 steps on
      phase 8's export with --gather_dtype bfloat16 --gather_round
      stochastic --gather_vjp batchdedup (gvjp_overflow 0 in its prints).
-     `phase21_alone()` runs it with only the set-up it needs.
+     `phase21_alone()` runs it with only the set-up it needs;
+ 22. the multi-device paths on two shards of card 0 (`--gpu_ids 0,0`):
+     phase 4's frame through SceneModel with --ray_shards 2 and with
+     --scene_shards 2 (K1 and K2 twice a chunk, nothing else; within
+     RENDER_ATOL of phase 4's frame, bit-equality logged; the host syncs
+     inside one chunk by torch.cuda's sync debug mode), each slab's table
+     bytes against the whole scene's, phase 6's step through each (losses
+     within 1e-4 relative and gradients within K3_TOL of the unsharded
+     step on the same state and noise; K2 and K3 once a shard; 4 steps
+     timed; the host syncs inside a step), train_ft (2 steps) then test_ft
+     with each flag on phase 8's export, phase 18's perspective frame on
+     two slabs against the unsharded one, and the ray-DP frame over cards
+     0 and 1 where the machine has two. `phase22_alone()` runs it with
+     only the set-up it needs.
 
 Any failure raises and the script exits non-zero before its last line.
 The last line is {"ok": true, "device": {...}}; the line before it holds
@@ -631,7 +644,8 @@ def main():
     for d in ("smoke", "smoke_ft", "smoke_scans", "smoke_grow", "smoke_sem",
               "smoke_sem_scans", "smoke_b3", "smoke_nerf",
               "smoke_pers", "smoke_dtu", "smoke_dtu_data",
-              "smoke_edit", "smoke_gathers"):                # its outputs
+              "smoke_edit", "smoke_gathers", "smoke_pers22",
+              "smoke_shards"):                               # its outputs
         shutil.rmtree(os.path.join(REPO, "build", d), ignore_errors=True)
 
     t_last = [time.perf_counter()]
@@ -803,6 +817,11 @@ def main():
     phase21_gathers(item, col)
     torch.cuda.empty_cache()
     stamp("phase 21")
+
+    # ---- 22. --ray_shards and --scene_shards on two shards of the card
+    phase22_shards(item, col)
+    torch.cuda.empty_cache()
+    stamp("phase 22")
 
     log(json.dumps({"kernels": [records[k] for k in sorted(records)]}))
     log(json.dumps({"ok": True, "device": {
@@ -4137,6 +4156,328 @@ def phase21_alone():
     torch.cuda.empty_cache()
     write_scannet_export(os.path.join(build, "smoke_scans"))
     phase21_gathers(item, col)
+
+# ------------------------------------------------- 22. multi-device paths
+SHARDS = ["--gpu_ids", "0,0"]          # two shards on card 0
+
+
+def shard_tables_line(model):
+    """Bytes of each slab's cloud rows and grid tables against the whole
+    scene's (MiB)."""
+    def mib(b):
+        return round(b / 2**20, 1)
+
+    def tables(cloud, g):
+        return {"cloud": nbytes(*(getattr(cloud, f.name) for f in
+                                  dataclasses.fields(cloud))),
+                "occ_mask": nbytes(g.occ_mask),
+                "dil_slot": nbytes(g.dil_slot),
+                "nbr_packed": nbytes(g.nbr_packed)}
+    whole = tables(model.cloud, model.grid)
+    shards = [tables(s.cloud, s) for s in model.sharded_scene.shards]
+    return (f"whole scene MiB {({k: mib(v) for k, v in whole.items()})}, "
+            f"each slab {[{k: mib(v) for k, v in b.items()} for b in shards]}"
+            f" ({[s.n_rows for s in model.sharded_scene.shards]} point rows, "
+            f"halo {model.sspec.halo} voxels)")
+
+
+def host_syncs(fn):
+    """fn() under torch.cuda's sync debug mode: the messages of the
+    operations in it that made the host wait for the card."""
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return [str(w.message).split("\n")[0][:120] for w in caught
+            if "synchroniz" in str(w.message)
+            and "prototype feature" not in str(w.message)]
+
+
+def chunk_syncs(model, item):
+    """Host syncs inside one 9216-ray chunk render of the model's mode
+    (the frame's shared tables and grids built before)."""
+    import torch
+    dev = model.device
+
+    def t(k):
+        return torch.as_tensor(np.asarray(item[k], np.float32), device=dev)
+    with torch.inference_mode():
+        render = model._chunk_renderer(t("campos")[None], t("camrotc2w")[None],
+                                       float(item["near"]), float(item["far"]),
+                                       t("bg_color"))
+        rd = t("raydir")[None, :9216]
+        return host_syncs(lambda: render(rd))
+
+
+def shard_frame(opt, item, col, label, chunks):
+    """Load phase 3's checkpoint under `opt` (shard flags), render phase 4's
+    frame with the counters reset just before: K1 and K2 once a chunk a
+    shard, nothing else, the frame within RENDER_ATOL of phase 4's."""
+    import torch
+    from sgnerf_tpu_torch.runtime.scene_model import SceneModel
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        model = SceneModel(opt)
+        model.load_checkpoint(model.resolve_resume())
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    reset_launches()
+    got = model.render_image(item)
+    launches = read_launches()
+    t0 = time.perf_counter()
+    again = model.render_image(item)
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    diff = float(np.abs(got - col).max())
+    n = len(item["raydir"])
+    syncs = chunk_syncs(model, item)
+    log(f"phase 22: {label}: loaded in {load_s:.1f} s; frame warm "
+        f"{warm_ms:.1f} ms ({n / warm_ms * 1e3:.0f} rays/s), launches "
+        f"{launches}; max |diff| to phase 4's frame {diff:.3e} (tolerance "
+        f"{RENDER_ATOL}), bit-equal {bool(np.array_equal(got, col))}, "
+        f"rerun bit-equal {bool(np.array_equal(got, again))}; host syncs "
+        f"in one chunk {len(syncs)} {syncs[:3]}")
+    assert launches == {"fused_knn_select": chunks,
+                        "fused_block1_alpha": chunks,
+                        "fused_block1_alpha_bwd": 0,
+                        "fused_block1_alpha_color": 0,
+                        "fused_block1_alpha_color_march": 0,
+                        "fused_knn_select_tiled": 0, **NO_GATHER}, launches
+    assert np.isfinite(got).all() and diff <= RENDER_ATOL, diff
+    return model
+
+
+def shard_step(model, batch, label):
+    """One train step's losses and gradients over the shards against the
+    unsharded step on the same state and noise (phase 6's check): losses
+    within 1e-4 relative, every gradient within K3_TOL of the unsharded
+    one's largest magnitude; K2 and K3 once a shard. Then 4 steps, timed."""
+    import torch
+    from sgnerf_tpu_torch.models.renderer import draw_render_noise
+    from sgnerf_tpu_torch.models.train import loss_and_grads, trained_fields
+    R = batch["raydir"].shape[1]
+    gen = torch.Generator(device=model.device).manual_seed(11)
+    noise = draw_render_noise(gen, model.cfg, 1, R)
+    ref_l, ref_net, ref_pts = loss_and_grads(model.state, model.grid,
+                                             model.cfg, model.tcfg, batch,
+                                             noise=noise)
+    reset_launches()
+    if model.sharded_scene is not None:
+        from sgnerf_tpu_torch.parallel.spatial import spatial_train_step
+        _, got_l, (g_net, per) = spatial_train_step(
+            model._spatial_state(), model.sspec, model.cfg, model.tcfg,
+            batch, noise=noise, return_grads=True)
+        model.state.step = model._spatial_tstate.step
+        model._spatial_dirty = True
+        # each slab row against the unsharded gradient of its point
+        g_pts = [[g[k][:s.n_rows] for g, s in
+                  zip(per, model.sharded_scene.shards)]
+                 for k in range(len(trained_fields(model.tcfg)))]
+        rows = [s.gid[:s.n_rows] for s in model.sharded_scene.shards]
+        ref_pts = [[r[i] for i in rows] for r in ref_pts]
+        got, ref = g_net + sum(g_pts, []), ref_net + sum(ref_pts, [])
+    else:
+        got_l, g_net, g_pts = loss_and_grads(
+            model.state, model.grid, model.cfg, model.tcfg, batch,
+            noise=noise, ray_mesh=model.ray_mesh)
+        got, ref = g_net + g_pts, ref_net + ref_pts
+    launches = read_launches()
+    syncs = host_syncs(lambda: model.optimize(batch))
+    loss_err = max(abs(float(got_l[k]) - float(ref_l[k]))
+                   / max(abs(float(ref_l[k])), 1e-12) for k in ref_l)
+    grad_err = max(float((a - b).abs().max()) / float(b.abs().max())
+                   for a, b in zip(got, ref) if float(b.abs().max()) > 0)
+    n = model.mesh.size if model.mesh is not None else model.ray_mesh.size
+    torch.cuda.synchronize()
+    step_ms = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        out = model.optimize(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"phase 22: {label}: one step of {R} rays against the unsharded "
+        f"step: worst loss rel diff {loss_err:.3e} (tolerance 1e-4), worst "
+        f"gradient max|diff| / max|ref| {grad_err:.3e} (tolerance "
+        f"{K3_TOL[False]}), launches {launches}; 4 more steps ms "
+        f"{[round(v, 1) for v in step_ms]}, loss {float(out['total']):.6f}, "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"host syncs in a step {len(syncs)} {syncs[:3]}")
+    assert loss_err <= 1e-4 and grad_err <= K3_TOL[False]
+    assert launches == {"fused_knn_select": 0, "fused_block1_alpha": n,
+                        "fused_block1_alpha_bwd": n,
+                        "fused_block1_alpha_color": 0,
+                        "fused_block1_alpha_color_march": 0,
+                        "fused_knn_select_tiled": 0, **NO_GATHER}, launches
+    assert np.isfinite(float(out["total"]))
+
+
+def shard_clis(flag, steps=2):
+    """train_ft then test_ft with `flag` 2 on two shards of card 0, on phase
+    8's export, resuming phase 3's checkpoint: the shard line printed, K3
+    once a step a shard, finite test PSNRs."""
+    from sgnerf_tpu_torch.ops.fused_agg import (fused_block1_alpha,
+                                                fused_block1_alpha_bwd)
+    from sgnerf_tpu_torch.run import test_ft, train_ft
+    build = os.path.join(REPO, "build")
+    root = os.path.join(build, "smoke_shards")
+    expr = os.path.join(root, flag[2:])
+    os.makedirs(expr, exist_ok=True)
+    for ext in ("", ".meta.json"):
+        shutil.copy(os.path.join(build, "smoke", "0_net_ray_marching.npz"
+                                 + ext),
+                    os.path.join(expr, "0_net_ray_marching.npz" + ext))
+    flags = TRAIN_FLAGS + [
+        "--name", flag[2:], "--checkpoints_dir", root,
+        "--data_root", os.path.join(build, "smoke_scans") + "/",
+        "--scan", "scene_smoke", "--maximum_step", str(steps),
+        "--save_iter_freq", str(steps), "--test_num", "1", "--test_freq",
+        "0", "--print_freq", "1", flag, "2"] + SHARDS
+    tee = Tee(sys.stdout)
+    out, k3 = [], []
+    for main, extra in ((train_ft.main, []),
+                        (test_ft.main, ["--resume_iter", "latest"])):
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            main(flags + extra)
+        k3.append(fused_block1_alpha_bwd.launches)
+        log(f"phase 22: {main.__module__.split('.')[-1]} {flag} 2 "
+            f"{' '.join(SHARDS)} in {time.perf_counter() - t0:.1f} s, "
+            f"launches K2 {fused_block1_alpha.launches} K3 {k3[-1]}")
+    out = tee.buf.getvalue()
+    assert f"[{flag[2:]}]" in out, out[-2000:]
+    assert f"training from step 0 to {steps}" in out
+    assert k3 == [2 * steps, 0], k3
+    psnr = [float(l_.split("psnr:")[1].split()[0])
+            for l_ in out.splitlines() if "psnr:" in l_]
+    assert len(psnr) >= 2 and np.isfinite(psnr).all(), psnr
+    assert os.path.exists(os.path.join(expr,
+                                       f"{steps}_net_ray_marching.npz"))
+
+
+def phase22_shards(item, col):
+    """Phase 22: --ray_shards 2 and --scene_shards 2 on two shards of card 0
+    (and, with more cards, the ray-DP frame over two of them): phase 4's
+    frame and phase 6's step through each, the perspective frame of phase
+    18's scene on two slabs."""
+    import torch
+    from sgnerf_tpu_torch.data import create_dataset
+    from sgnerf_tpu_torch.options import TestOptions, TrainOptions
+    from sgnerf_tpu_torch.runtime.scene_model import SceneModel
+    t_phase = time.perf_counter()
+    chunks = -(-len(item["raydir"]) // 9216)
+    torch.cuda.reset_peak_memory_stats()
+    model = shard_frame(TestOptions().parse(
+        TEST_DEFAULT_FLAGS + ["--ray_shards", "2"] + SHARDS), item, col,
+        "ray-DP frame, 2 shards", 2 * chunks)
+    del model
+    model = shard_frame(TestOptions().parse(
+        TEST_DEFAULT_FLAGS + ["--scene_shards", "2"] + SHARDS), item, col,
+        "scene-shard frame, 2 slabs", 2 * chunks)
+    log(f"phase 22: scene shards (bf16 cache): {shard_tables_line(model)}")
+    del model
+    torch.cuda.empty_cache()
+    if torch.cuda.device_count() > 1:
+        shard_frame(TestOptions().parse(
+            TEST_DEFAULT_FLAGS + ["--ray_shards", "2", "--gpu_ids", "0,1"]),
+            item, col, "ray-DP frame on cards 0 and 1", 2 * chunks)
+        torch.cuda.empty_cache()
+
+    for flag, label in (("--ray_shards", "ray-DP step, 2 shards"),
+                        ("--scene_shards", "scene-shard step, 2 slabs")):
+        opt = TrainOptions().parse(TRAIN_FLAGS + [
+            "--name", "smoke", "--checkpoints_dir",
+            os.path.join(REPO, "build"), flag, "2"] + SHARDS)
+        with contextlib.redirect_stdout(io.StringIO()):
+            model = SceneModel(opt)
+            model.load_checkpoint(model.resolve_resume())
+        torch.cuda.reset_peak_memory_stats()
+        shard_step(model, train_batch(item, model.device), label)
+        if model.sharded_scene is not None:
+            log(f"phase 22: scene shards (f32 cache): "
+                f"{shard_tables_line(model)}")
+        del model
+        torch.cuda.empty_cache()
+
+    # the CLIs with each flag
+    for flag in ("--ray_shards", "--scene_shards"):
+        shard_clis(flag)
+        torch.cuda.empty_cache()
+
+    # the perspective frame of phase 18's scene, unsharded then on 2 slabs
+    build = os.path.join(REPO, "build")
+    root = os.path.join(build, "smoke_nerf")
+    frames = []
+    for extra in ([], ["--scene_shards", "2"] + SHARDS):
+        opt = TrainOptions().parse(nerf_flags(
+            root, "pers22", os.path.join(build, "smoke_pers22")) + extra)
+        opt.split = "train"
+        dataset = create_dataset(opt)
+        with contextlib.redirect_stdout(io.StringIO()):
+            model = SceneModel(opt)
+            xyz, feats, labels = dataset.load_init_points()
+            model.setup_from_points(xyz, feats, labels, dataset=dataset)
+        opt.split, opt.random_sample = "test", "no_crop"
+        titem = create_dataset(opt).get_item(0)
+        reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            got = model.render_image(titem)
+        launches = read_launches()
+        t0 = time.perf_counter()
+        model.render_image(titem)
+        frames.append((got, launches, (time.perf_counter() - t0) * 1e3))
+        if extra:
+            sizes = shard_tables_line(model)
+        del model
+        torch.cuda.empty_cache()
+    (ref, _, ref_ms), (got, launches, ms) = frames
+    diff = float(np.abs(got - ref).max())
+    n_chunks = -(-len(ref) // 9216)
+    log(f"phase 22: perspective frame {NERF_W}x{NERF_W} on 2 slabs: warm "
+        f"{ms:.1f} ms (unsharded {ref_ms:.1f}), launches {launches}; max "
+        f"|diff| to the unsharded frame {diff:.3e} (tolerance "
+        f"{RENDER_ATOL}); {sizes}")
+    assert diff <= RENDER_ATOL and np.isfinite(got).all(), diff
+    assert launches["fused_block1_alpha"] == 2 * n_chunks, launches
+    assert sum(launches.values()) == 2 * n_chunks, launches
+    log(f"phase 22: {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase22_alone():
+    """Phase 22 on its own (`python -c "import chip_smoke as cs;
+    cs.phase22_alone()"`): the card, the kernels, phase 3's scene and
+    phase 4's frame, phase 8's ScanNet export, phase 18's NeRF-synthetic
+    export, then phase 22."""
+    import torch
+    from sgnerf_tpu_torch.ops import _cuda
+    from sgnerf_tpu_torch.options import TestOptions
+    global SMI
+    SMI = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    log(SMI)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build = os.path.join(REPO, "build")
+    for d in ("smoke", "smoke_scans", "smoke_nerf", "smoke_pers22",
+              "smoke_shards"):
+        shutil.rmtree(os.path.join(build, d), ignore_errors=True)
+    log(f"kernels built in {_cuda.build_all():.1f} s")
+    model, _ = build_scene(TestOptions().parse(TEST_DEFAULT_FLAGS), N_POINTS)
+    item = frame_item()
+    col = model.render_image(item)
+    del model
+    torch.cuda.empty_cache()
+    write_scannet_export(os.path.join(build, "smoke_scans"))
+    write_nerf_export(os.path.join(build, "smoke_nerf"))
+    phase22_shards(item, col)
+
 
 def render_rays_of(model, kw):
     """coarse_raycolor of model on phase20_edit's 512 rays."""

@@ -299,7 +299,7 @@ def _rot_vec(v, rot):
     return (v[..., None, :] * rot).sum(-1)
 
 
-def _gradient_clamp(x, lo=0.0001, hi=1.0):
+def gradient_clamp(x, lo=0.0001, hi=1.0):
     """Pass-through clamp: value clamped, gradient unclamped (:863)."""
     return x - (x - torch.clamp(x, lo, hi)).detach()
 
@@ -428,7 +428,7 @@ def aggregate(params: Dict[str, Any], cfg: AggregatorConfig, *,
         weight = weight / torch.clamp(weight.sum(-1, keepdim=True), min=1e-8)
     conf_coefficient = torch.ones_like(weight)
     if sampled_conf is not None:
-        conf_coefficient = _gradient_clamp(sampled_conf[..., 0])
+        conf_coefficient = gradient_clamp(sampled_conf[..., 0])
     w = weight * conf_coefficient
 
     # viewdirs rotate into the canonical frame; per neighbour (an edited

@@ -188,7 +188,7 @@ def draw_render_noise(generator: torch.Generator, cfg: RenderConfig, B: int,
     return noise
 
 
-def _ray_samples(cfg: RenderConfig, campos, raydir, near, far, noise,
+def ray_samples(cfg: RenderConfig, campos, raydir, near, far, noise,
                  is_train):
     """cfg's ray generator -> (raypos (B,R,D,3), ts (B,R,D))."""
     raygen = find_ray_generation_method(cfg.which_ray_generation)
@@ -412,11 +412,11 @@ def gather_overflow(cfg: "RenderConfig", pid: torch.Tensor):
     return None
 
 
-def _table_shape(cloud: NeuralPointCloud, cfg: RenderConfig):
+def table_shape_of(cloud: NeuralPointCloud, cfg: RenderConfig):
     return (cloud.capacity, table_width(cloud, bool(cfg.semantic_guidance)))
 
 
-def _table(cloud: NeuralPointCloud, cfg: RenderConfig, noise, is_train):
+def step_table(cloud: NeuralPointCloud, cfg: RenderConfig, noise, is_train):
     """The step's attribute table: stochastically rounded on the noise's
     sr_bits when training with --gather_round stochastic."""
     sr_bits = None
@@ -443,8 +443,9 @@ def render_rays(params: Dict, cloud: NeuralPointCloud, grid: PointGrid,
                 prob: bool = False) -> Dict[str, torch.Tensor]:
     """campos (B,3), raydir (B,R,3), camrotc2w (B,3,3) -> output dict with
     coarse_raycolor (B,R,3) and the per-sample march terms. `table` is the
-    packed attribute table (eval only; built from the cloud when not given,
-    and always when training). `noise` (or draws from `generator`) jitters
+    packed attribute table, built from the cloud when not given (a training
+    caller that gives one builds it with `step_table`, so the gradient
+    reaches the cloud). `noise` (or draws from `generator`) jitters
     the samples when `is_train`; when training with cfg.semantic_guidance,
     `pixel_label` (B,R) guides the query. `prob` adds the growing probes'
     outputs."""
@@ -454,9 +455,9 @@ def render_rays(params: Dict, cloud: NeuralPointCloud, grid: PointGrid,
     if noise is None and generator is not None:
         noise = draw_render_noise(generator, cfg, B, R, is_train=is_train,
                                   grid=grid, guidance=use_sem,
-                                  table_shape=_table_shape(cloud, cfg))
+                                  table_shape=table_shape_of(cloud, cfg))
     noise = noise or {}
-    raypos, ray_ts = _ray_samples(cfg, campos, raydir, near, far, noise,
+    raypos, ray_ts = ray_samples(cfg, campos, raydir, near, far, noise,
                                   is_train)
     # with the two-level compaction on, positions are recomputed from
     # (campos, dir, t) for the selected samples only, where the generator's
@@ -475,8 +476,8 @@ def render_rays(params: Dict, cloud: NeuralPointCloud, grid: PointGrid,
                         points_label_prob=(cloud.label_prob if use_sem
                                            else None),
                         guide_u=noise.get("guide_u"))
-    if table is None or is_train:
-        table = _table(cloud, cfg, noise, is_train)
+    if table is None:
+        table = step_table(cloud, cfg, noise, is_train)
     return _shade_and_march(params, cloud, cfg, table, q.sample_pidx,
                             q.sample_loc_w, q.ray_mask, campos, raydir,
                             camrotc2w, bg_color, is_train, prob)
@@ -504,9 +505,9 @@ def render_rays_perspective(params: Dict, cloud: NeuralPointCloud, pspec,
     if noise is None and generator is not None:
         noise = draw_render_noise(generator, cfg, B, R, is_train=is_train,
                                   perspective=True,
-                                  table_shape=_table_shape(cloud, cfg))
+                                  table_shape=table_shape_of(cloud, cfg))
     noise = noise or {}
-    raypos, _ = _ray_samples(cfg, campos, raydir, near, far, noise, is_train)
+    raypos, _ = ray_samples(cfg, campos, raydir, near, far, noise, is_train)
     if pgrid is None:
         pgrid, _ = perspective_grid(cloud.xyz, cloud.active, camrotc2w[0],
                                     campos[0], pspec)
@@ -528,8 +529,8 @@ def render_rays_perspective(params: Dict, cloud: NeuralPointCloud, pspec,
                    campos[0]).reshape(loc_p.shape)
     loc_w = torch.where(res.sample_loc_mask[..., None], loc_w,
                         torch.zeros_like(loc_w))
-    if table is None or is_train:
-        table = _table(cloud, cfg, noise, is_train)
+    if table is None:
+        table = step_table(cloud, cfg, noise, is_train)
     return _shade_and_march(params, cloud, cfg, table, res.sample_pidx,
                             loc_w, res.ray_mask, campos, raydir, camrotc2w,
                             bg_color, is_train)

@@ -148,22 +148,73 @@ def create_train_state(params, cloud: NeuralPointCloud,
         opt_pts=adam_init([getattr(cloud, f) for f in trained_fields(tcfg)]))
 
 
-def _phase_scales(tcfg: TrainConfig, step: int) -> Tuple[float, float]:
+def phase_scales(tcfg: TrainConfig, step: int) -> Tuple[float, float]:
     if tcfg.alter_step > 0:
         phase = (step // tcfg.alter_step) % 3
         return float(phase == 0), float(phase == 1)
     return 1.0, 1.0
 
 
+def step_losses(out: Dict[str, torch.Tensor], batch: Dict[str, Any],
+                tcfg: TrainConfig):
+    """A train step's render output -> (total, losses): --bgmodel plane's
+    per-ray background, the depth mask and every loss item of tcfg; the
+    gather transposes' overflow count rides the losses."""
+    if "bg_ray" in batch:
+        # --bgmodel plane (reference fill_invalid,
+        # neural_points_volumetric_model.py:175-177): the per-ray plane
+        # background replaces the constant one through the background
+        # transmission
+        bgc = batch.get("bg_color")
+        bgc = 0.0 if bgc is None else bgc
+        out = dict(out, coarse_raycolor=(
+            out["coarse_raycolor"]
+            + out["coarse_is_background"] * (batch["bg_ray"] - bgc)))
+    if "ray_depth_mask" in batch:
+        out = dict(out, ray_depth_mask=batch["ray_depth_mask"])
+    total, losses = compute_losses(
+        out, batch["gt_image"],
+        color_loss_items=tcfg.color_loss_items,
+        color_loss_weights=tcfg.color_loss_weights,
+        zero_one_loss_items=tcfg.zero_one_loss_items,
+        zero_one_loss_weights=tcfg.zero_one_loss_weights,
+        depth_loss_items=tcfg.depth_loss_items,
+        depth_loss_weights=tcfg.depth_loss_weights,
+        bg_loss_items=tcfg.bg_loss_items,
+        bg_loss_weights=tcfg.bg_loss_weights,
+        l2_size_loss_items=tcfg.l2_size_loss_items,
+        l2_size_loss_weights=tcfg.l2_size_loss_weights,
+        gt_depth=batch.get("gt_depth"), gt_mask=batch.get("gt_mask"),
+        sparse_loss_weight=tcfg.sparse_loss_weight,
+        zero_epsilon=tcfg.zero_epsilon)
+    if "gvjp_overflow" in out:
+        # gather_vjp raydedup/batchdedup: the rows the transpose drops,
+        # in the losses so the periodic prints show a lossy config
+        losses = dict(losses, gvjp_overflow=out["gvjp_overflow"].detach()
+                      .to(torch.float32))
+    return total, losses
+
+
+def grads_of(total, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    """d total / d tensors; zeros for a tensor the loss does not reach."""
+    grads = torch.autograd.grad(total, tensors, allow_unused=True)
+    return [torch.zeros_like(t) if g is None else g
+            for t, g in zip(tensors, grads)]
+
+
 def loss_and_grads(state: TrainState, grid, cfg: RenderConfig,
                    tcfg: TrainConfig, batch: Dict[str, torch.Tensor],
                    noise: Optional[Dict[str, torch.Tensor]] = None,
-                   generator: Optional[torch.Generator] = None, pspec=None):
+                   generator: Optional[torch.Generator] = None, pspec=None,
+                   ray_mesh=None):
     """Forward, losses and backward of one step, without the update.
     Returns (losses, param grads, point grads) in the orders of
     param_leaves and trained_fields; a field the loss does not reach gets
     zeros. With `pspec` (a frustum GridSpec) the forward is the
-    perspective-space path and `grid` goes unused."""
+    perspective-space path and `grid` goes unused. With `ray_mesh` (a
+    ShardGroup, --ray_shards) the rays are split over its devices
+    (parallel/sharded.py); the losses are computed once, on the master,
+    from the joined outputs."""
     params, cloud = state.params, state.cloud
     leaves = param_leaves(params)
     fields = trained_fields(tcfg)
@@ -175,51 +226,24 @@ def loss_and_grads(state: TrainState, grid, cfg: RenderConfig,
                    camrotc2w=batch["camrotc2w"], near=batch["near"],
                    far=batch["far"], bg_color=batch.get("bg_color"),
                    noise=noise, generator=generator, is_train=True)
-        if pspec is not None:
+        if ray_mesh is not None:
+            from ..parallel.sharded import render_rays_sharded
+            out = render_rays_sharded(
+                params, cloud, grid, cfg, ray_mesh, pspec=pspec,
+                pixel_label=(None if pspec is not None
+                             else batch.get("pixel_label")), **cam)
+        elif pspec is not None:
             # --wcoord_query 0: no semantic guidance, as the reference
             # added it to the world-coordinate querier only
             out = render_rays_perspective(params, cloud, pspec, cfg, **cam)
         else:
             out = render_rays(params, cloud, grid, cfg,
                               pixel_label=batch.get("pixel_label"), **cam)
-        if "bg_ray" in batch:
-            # --bgmodel plane (reference fill_invalid,
-            # neural_points_volumetric_model.py:175-177): the per-ray plane
-            # background replaces the constant one through the background
-            # transmission
-            bgc = batch.get("bg_color")
-            bgc = 0.0 if bgc is None else bgc
-            out = dict(out, coarse_raycolor=(
-                out["coarse_raycolor"]
-                + out["coarse_is_background"] * (batch["bg_ray"] - bgc)))
-        if "ray_depth_mask" in batch:
-            out["ray_depth_mask"] = batch["ray_depth_mask"]
-        total, losses = compute_losses(
-            out, batch["gt_image"],
-            color_loss_items=tcfg.color_loss_items,
-            color_loss_weights=tcfg.color_loss_weights,
-            zero_one_loss_items=tcfg.zero_one_loss_items,
-            zero_one_loss_weights=tcfg.zero_one_loss_weights,
-            depth_loss_items=tcfg.depth_loss_items,
-            depth_loss_weights=tcfg.depth_loss_weights,
-            bg_loss_items=tcfg.bg_loss_items,
-            bg_loss_weights=tcfg.bg_loss_weights,
-            l2_size_loss_items=tcfg.l2_size_loss_items,
-            l2_size_loss_weights=tcfg.l2_size_loss_weights,
-            gt_depth=batch.get("gt_depth"), gt_mask=batch.get("gt_mask"),
-            sparse_loss_weight=tcfg.sparse_loss_weight,
-            zero_epsilon=tcfg.zero_epsilon)
-        if "gvjp_overflow" in out:
-            # gather_vjp raydedup/batchdedup: the rows the transpose drops,
-            # in the losses so the periodic prints show a lossy config
-            losses = dict(losses, gvjp_overflow=out["gvjp_overflow"].detach()
-                          .to(torch.float32))
-        grads = torch.autograd.grad(total, leaves + pts, allow_unused=True)
+        total, losses = step_losses(out, batch, tcfg)
+        grads = grads_of(total, leaves + pts)
     finally:
         for t in leaves + pts:
             t.requires_grad_(False)
-    grads = [torch.zeros_like(t) if g is None else g
-             for t, g in zip(leaves + pts, grads)]
     return ({k: v.detach() for k, v in losses.items()},
             grads[:len(leaves)], grads[len(leaves):])
 
@@ -227,21 +251,22 @@ def loss_and_grads(state: TrainState, grid, cfg: RenderConfig,
 def train_step(state: TrainState, grid, cfg: RenderConfig, tcfg: TrainConfig,
                batch: Dict[str, torch.Tensor],
                noise: Optional[Dict[str, torch.Tensor]] = None,
-               generator: Optional[torch.Generator] = None, pspec=None
-               ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+               generator: Optional[torch.Generator] = None, pspec=None,
+               ray_mesh=None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One optimization step, in place. batch: campos (B,3), raydir (B,R,3),
     camrotc2w (B,3,3), gt_image (B,R,3), near/far, bg_color (3,), optional
     gt_depth/gt_mask/ray_depth_mask (B,R) and pixel_label (B,R) int (the
     semantic-guided query's ray labels). The render noise comes from
     `noise` (render_rays' argument) or is drawn from `generator`; `pspec`
-    routes the forward through the perspective-space path. A batch's
+    routes the forward through the perspective-space path; `ray_mesh` (a
+    ShardGroup) splits the rays over its devices. A batch's
     `bg_ray` (B,R,3), --bgmodel plane's per-ray background, replaces
     bg_color through the background transmission. Returns
     (state, losses): detached 0-d tensors, not synchronised."""
     losses, g_net, g_pts = loss_and_grads(state, grid, cfg, tcfg, batch,
                                           noise=noise, generator=generator,
-                                          pspec=pspec)
-    net_scale, pts_scale = _phase_scales(tcfg, state.step)
+                                          pspec=pspec, ray_mesh=ray_mesh)
+    net_scale, pts_scale = phase_scales(tcfg, state.step)
     adam_step(param_leaves(state.params), g_net, state.opt_net,
               schedule(tcfg, tcfg.lr, state.opt_net["count"]), net_scale)
     fields = trained_fields(tcfg)
@@ -258,7 +283,7 @@ def train_step_multi(state: TrainState, grid, cfg: RenderConfig,
                      tcfg: TrainConfig, batches: List[Dict[str, torch.Tensor]],
                      noises: Optional[List[Dict[str, torch.Tensor]]] = None,
                      generator: Optional[torch.Generator] = None,
-                     pspec=None):
+                     pspec=None, ray_mesh=None):
     """G sequential train_steps (the JAX package scans them in one
     dispatch; here they are plain calls). Returns (state, [losses] * G)."""
     out = []
@@ -266,6 +291,6 @@ def train_step_multi(state: TrainState, grid, cfg: RenderConfig,
         state, losses = train_step(
             state, grid, cfg, tcfg, batch,
             noise=None if noises is None else noises[i], generator=generator,
-            pspec=pspec)
+            pspec=pspec, ray_mesh=ray_mesh)
         out.append(losses)
     return state, out

@@ -21,6 +21,7 @@ order of XLA's top_k, through a stable sort.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -49,11 +50,21 @@ class GridSpec:
         return self.dilate_size or self.kernel_size
 
     def min_corner_t(self, device) -> torch.Tensor:
-        return torch.tensor(self.min_corner, dtype=torch.float32,
-                            device=device)
+        return const(self.min_corner, torch.float32, device)
 
     def vsize_t(self, device) -> torch.Tensor:
-        return torch.tensor(self.vsize, dtype=torch.float32, device=device)
+        return const(self.vsize, torch.float32, device)
+
+
+@functools.lru_cache(maxsize=None)
+def const(values: tuple, dtype: torch.dtype, device) -> torch.Tensor:
+    """A small constant tensor on `device`, copied from the host once:
+    a blocking host-to-device copy waits for the device's queue, so a
+    render that made its constants anew every chunk would hold the host
+    (and shards on other cards) back. Made outside inference mode so
+    autograd may save it. Callers never write to it."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)
 
 
 def auto_grid_caps(xyz: np.ndarray, min_corner, scaled_vsize,
@@ -193,12 +204,12 @@ def voxel_coords(xyz: torch.Tensor, spec: GridSpec) -> torch.Tensor:
 
 
 def in_bounds(coords: torch.Tensor, spec: GridSpec) -> torch.Tensor:
-    vdim = torch.tensor(spec.vdim, dtype=coords.dtype, device=coords.device)
+    vdim = const(spec.vdim, coords.dtype, coords.device)
     return ((coords >= 0) & (coords < vdim)).all(dim=-1)
 
 
 def clip_coords(coords: torch.Tensor, dims) -> torch.Tensor:
-    hi = torch.tensor(dims, dtype=coords.dtype, device=coords.device) - 1
+    hi = const(tuple(d - 1 for d in dims), coords.dtype, coords.device)
     return torch.minimum(coords.clamp_min(0), hi)
 
 
@@ -237,7 +248,7 @@ def build_point_grid(xyz: torch.Tensor, point_mask: torch.Tensor,
     """Build the grid from (N,3) world points; point_mask (N,) bool marks
     live points. The cache capacity max_d is sized from the actual dilated
     voxel count (bucketed to 262144 rows), as in the reference."""
-    grid = _build_grid_core(xyz, point_mask, spec)
+    grid = build_grid_core(xyz, point_mask, spec)
     if spec.nbr_cache <= 0:
         return grid
     nvox = spec.vdim[0] * spec.vdim[1] * spec.vdim[2]
@@ -259,19 +270,24 @@ def build_point_grid(xyz: torch.Tensor, point_mask: torch.Tensor,
     bucket = 262144
     max_d = min(((n_dil + bucket - 1) // bucket) * bucket, nvox)
     max_d = max(max_d, min(bucket, nvox))
-    dil_slot, nbr_packed = _build_nbr_cache(grid, spec, max_d)
+    dil_slot, nbr_packed = build_nbr_cache(grid, spec, max_d)
     return dataclasses.replace(grid, dil_slot=dil_slot, nbr_packed=nbr_packed)
 
 
-def _build_grid_core(xyz: torch.Tensor, point_mask: torch.Tensor,
-                     spec: GridSpec) -> PointGrid:
-    dev = xyz.device
+def _slots(xyz: torch.Tensor, point_mask: torch.Tensor, spec: GridSpec,
+           x_off: int = 0):
+    """The build's point order: (svid, order, slot, rank, is_first) of the
+    points sorted by voxel id (ties by point index): the occupied-voxel
+    slot (-1 past max_o or out of range) and the rank within the voxel.
+    x_off: the grid is a window of a larger one starting at its x voxel
+    x_off (a slab, parallel/spatial.py): the points are binned in the
+    larger grid's voxels, then moved by -x_off voxels."""
     N = xyz.shape[0]
     X, Y, Z = spec.vdim
     nvox = X * Y * Z
-    max_o, P = spec.max_o, spec.P
-
     coords = voxel_coords(xyz, spec)
+    if x_off:
+        coords = coords - const((x_off, 0, 0), coords.dtype, coords.device)
     valid = point_mask & in_bounds(coords, spec)
     vid = torch.where(valid, linear_vid(coords, spec),
                       torch.full_like(coords[:, 0], nvox))
@@ -280,12 +296,45 @@ def _build_grid_core(xyz: torch.Tensor, point_mask: torch.Tensor,
 
     is_first = torch.cat([pvalid[:1], (svid[1:] != svid[:-1]) & pvalid[1:]])
     occ_rank = torch.cumsum(is_first, 0) - 1      # slot per sorted point
-    slot = torch.where(pvalid & (occ_rank < max_o), occ_rank,
+    slot = torch.where(pvalid & (occ_rank < spec.max_o), occ_rank,
                        torch.full_like(occ_rank, -1))
 
-    arange = torch.arange(N, device=dev)
+    arange = torch.arange(N, device=xyz.device)
     seg_start = torch.cummax(torch.where(is_first, arange, 0), 0).values
     rank = arange - seg_start                     # rank within the voxel
+    return svid, order, slot, rank, is_first
+
+
+def kept_points(xyz: torch.Tensor, point_mask: torch.Tensor,
+                spec: GridSpec) -> torch.Tensor:
+    """(N,) bool: the points in range in one of the first max_o occupied
+    voxels, the voxels the grid build gives a slot (its per-voxel cap of P
+    points then applies within each)."""
+    _, order, slot, _, _ = _slots(xyz, point_mask, spec)
+    kept = torch.zeros(xyz.shape[0], dtype=torch.bool, device=xyz.device)
+    kept[order] = slot >= 0
+    return kept
+
+
+def coarse_occupancy(occ_mask: torch.Tensor, F: int) -> torch.Tensor:
+    """The two-level compaction's supervoxel table: occ_mask max-pooled by
+    F, then dilated by one supervoxel (3^3)."""
+    X, Y, Z = occ_mask.shape
+    Xc, Yc, Zc = (X + F - 1) // F, (Y + F - 1) // F, (Z + F - 1) // F
+    pooled = _max_pool(occ_mask, (F, F, F), F,
+                       ((0, Xc * F - X), (0, Yc * F - Y), (0, Zc * F - Z)))
+    return _max_pool(pooled, (3, 3, 3), 1, ((1, 1),) * 3).to(torch.uint8)
+
+
+def build_grid_core(xyz: torch.Tensor, point_mask: torch.Tensor,
+                    spec: GridSpec, x_off: int = 0) -> PointGrid:
+    """The grid's tables but the cache (x_off: a window's, `_slots`)."""
+    dev = xyz.device
+    N = xyz.shape[0]
+    X, Y, Z = spec.vdim
+    nvox = X * Y * Z
+    max_o, P = spec.max_o, spec.P
+    svid, order, slot, rank, is_first = _slots(xyz, point_mask, spec, x_off)
 
     # dense voxel -> slot map; rows past the end catch the dropped writes
     scatter_vid = torch.where(is_first & (slot >= 0), svid,
@@ -316,15 +365,9 @@ def _build_grid_core(xyz: torch.Tensor, point_mask: torch.Tensor,
         xyz[bucket_pnts.clamp(0, N - 1).long()],
         torch.tensor(1e9, device=dev)).to(torch.float32)
 
-    coarse = torch.zeros((0, 0, 0), dtype=torch.uint8, device=dev)
-    if spec.coarse_factor > 1:
-        Fc = spec.coarse_factor
-        Xc, Yc, Zc = (X + Fc - 1) // Fc, (Y + Fc - 1) // Fc, (Z + Fc - 1) // Fc
-        pooled = _max_pool(occ_mask, (Fc, Fc, Fc), Fc,
-                           ((0, Xc * Fc - X), (0, Yc * Fc - Y),
-                            (0, Zc * Fc - Z)))
-        coarse = _max_pool(pooled, (3, 3, 3), 1,
-                           ((1, 1),) * 3).to(torch.uint8)
+    coarse = (coarse_occupancy(occ_mask, spec.coarse_factor)
+              if spec.coarse_factor > 1
+              else torch.zeros((0, 0, 0), dtype=torch.uint8, device=dev))
     return PointGrid(
         occ_mask=occ_mask, vox_slot=vox_slot, bucket_pnts=bucket_pnts,
         bucket_cnt=bucket_cnt, bucket_xyz=bucket_xyz,
@@ -355,14 +398,15 @@ def neighbor_offsets(kernel_size, device) -> torch.Tensor:
     offs = np.stack(np.meshgrid(
         np.arange(kx) - kx // 2, np.arange(ky) - ky // 2,
         np.arange(kz) - kz // 2, indexing="ij"), -1).reshape(-1, 3)
-    return torch.as_tensor(offs, dtype=torch.int64, device=device)
+    return const(tuple(map(tuple, offs.tolist())), torch.int64, device)
 
 
 def _cache_one_chunk(grid: PointGrid, spec: GridSpec,
-                     sl_coords: torch.Tensor) -> torch.Tensor:
+                     sl_coords: torch.Tensor, x_off: int = 0) -> torch.Tensor:
     """(S,3) dilated-voxel coords (-1 = pad) -> (S, C*W) packed cache rows:
     per voxel, the C candidates of its kernel neighbourhood nearest its
-    centre, stored as offsets from that centre."""
+    centre, stored as offsets from that centre (of the larger grid's
+    voxel, for a window at x_off)."""
     C = spec.nbr_cache
     dev = sl_coords.device
     offs = neighbor_offsets(spec.kernel_size, dev)
@@ -375,11 +419,13 @@ def _cache_one_chunk(grid: PointGrid, spec: GridSpec,
     cxyz = grid.bucket_xyz[sc]                              # (S,Kv,P,3)
     cpid = torch.where(s_ok[..., None], grid.bucket_pnts[sc],
                        torch.full_like(grid.bucket_pnts[sc], -1))
-    center = fma((sl_coords.to(torch.float32) + 0.5), spec.vsize_t(dev),
+    gl = (sl_coords + const((x_off, 0, 0), sl_coords.dtype, dev)
+          if x_off else sl_coords)
+    center = fma((gl.to(torch.float32) + 0.5), spec.vsize_t(dev),
                  spec.min_corner_t(dev))
     diff = cxyz - center[:, None, None, :]
-    d2 = (diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
-          + diff[..., 2] * diff[..., 2])
+    d2 = fma(diff[..., 2], diff[..., 2],
+             fma(diff[..., 1], diff[..., 1], diff[..., 0] * diff[..., 0]))
     d2 = torch.where((cpid >= 0) & s_ok[..., None], d2,
                      torch.tensor(float("inf"), device=dev))
     S = sl_coords.shape[0]
@@ -407,9 +453,11 @@ def _chunk_for(spec: GridSpec, base: int = 65536) -> int:
     return c
 
 
-def _build_nbr_cache(grid: PointGrid, spec: GridSpec, max_d: int):
+def build_nbr_cache(grid: PointGrid, spec: GridSpec, max_d: int,
+                    x_off: int = 0):
     """Merged-neighbourhood cache over the dilated voxel set, one chunk of
-    voxels at a time into a preallocated table."""
+    voxels at a time into a preallocated table (x_off: a window's, its
+    rows those of the larger grid's voxels)."""
     dil_slot, dcoords = _dilated_enumeration(grid, spec, max_d)
     W = _cache_width(spec.cache_dtype)
     table = torch.empty((max_d, spec.nbr_cache * W), dtype=torch.int16,
@@ -417,5 +465,5 @@ def _build_nbr_cache(grid: PointGrid, spec: GridSpec, max_d: int):
     chunk = max(1, min(_chunk_for(spec), max_d))
     for s in range(0, max_d, chunk):
         table[s:s + chunk] = _cache_one_chunk(grid, spec,
-                                              dcoords[s:s + chunk])
+                                              dcoords[s:s + chunk], x_off)
     return dil_slot, table

@@ -20,8 +20,8 @@ import torch
 
 from .fused_knn import (fused_knn_select, fused_knn_select_tiled,
                         tile_unique)
-from .grid import (PointGrid, clip_coords, in_bounds, neighbor_offsets,
-                   take3d, unpack_cache, voxel_coords)
+from .grid import (PointGrid, clip_coords, const, in_bounds,
+                   neighbor_offsets, take3d, unpack_cache, voxel_coords)
 
 
 class QueryResult(NamedTuple):
@@ -88,20 +88,41 @@ def mask_and_compact_samples(raypos: torch.Tensor, grid: PointGrid, SR: int,
     return loc, smask, lbl
 
 
-def _coarse_segment_hits(mpos, grid: PointGrid, C: int):
-    """Coarse test at segment midpoints (B,R,G,3) -> (seg_ok, seg_idx) of
-    the first C hit segments, ascending."""
-    spec = grid.spec
+def coarse_segment_hits(mpos, spec, coarse_occ, C: int):
+    """Coarse test at segment midpoints (B,R,G,3) against the supervoxel
+    table `coarse_occ` -> (seg_ok, seg_idx) of the first C hit segments,
+    ascending."""
     G = mpos.shape[2]
-    cshape = tuple(grid.coarse_occ.shape)
+    cshape = tuple(coarse_occ.shape)
     ccoord = torch.div(voxel_coords(mpos, spec), spec.coarse_factor,
                        rounding_mode="floor")
-    cdim = torch.tensor(cshape, device=mpos.device)
+    cdim = const(cshape, torch.int64, mpos.device)
     cin = ((ccoord >= 0) & (ccoord < cdim)).all(dim=-1)
-    cocc = take3d(grid.coarse_occ, clip_coords(ccoord, cshape), cshape) > 0
+    cocc = take3d(coarse_occ, clip_coords(ccoord, cshape), cshape) > 0
     g_rng = torch.arange(G, device=mpos.device)
     top, top_g = topk_stable(torch.where(cin & cocc, G - g_rng, -1), C)
     return top > 0, top_g.clamp(0, G - 1)
+
+
+def two_level_compact(hit, raypos, spec, coarse_occ, SR: int):
+    """The two-level compaction given every sample's fine hit (B,R,D) (the
+    slab-sharded render's united hits): the first SR fine hits inside the
+    first seg_cap segments whose midpoint passes the coarse test, as
+    `_two_level_hits` selects them. Returns (smask, gather_d) (B,R,SR)."""
+    B, R, D = hit.shape
+    L = spec.seg_len
+    G = (D + L - 1) // L
+    C = min(spec.seg_cap, G)
+    dev = hit.device
+    mid = torch.clamp(torch.arange(G, device=dev) * L + L // 2, max=D - 1)
+    seg_ok, seg_idx = coarse_segment_hits(raypos[:, :, mid, :], spec,
+                                          coarse_occ, C)
+    fine_d = seg_idx[..., None] * L + torch.arange(L, device=dev)
+    fine_ok = (seg_ok[..., None] & (fine_d < D)).reshape(B, R, C * L)
+    fine_d = fine_d.clamp(max=D - 1).reshape(B, R, C * L)
+    h = torch.gather(hit, 2, fine_d) & fine_ok
+    top2, top2_i = topk_stable(torch.where(h, D - fine_d, -1), SR)
+    return top2 > 0, torch.gather(fine_d, 2, top2_i).clamp(0, D - 1)
 
 
 def _fine_hits(fpos, fine_ok, grid: PointGrid):
@@ -123,7 +144,8 @@ def _two_level_hits(raypos, grid: PointGrid, SR: int):
     C = min(spec.seg_cap, G)
     dev = raypos.device
     mid = torch.clamp(torch.arange(G, device=dev) * L + L // 2, max=D - 1)
-    seg_ok, seg_idx = _coarse_segment_hits(raypos[:, :, mid, :], grid, C)
+    seg_ok, seg_idx = coarse_segment_hits(raypos[:, :, mid, :], spec,
+                                          grid.coarse_occ, C)
     fine_d = seg_idx[..., None] * L + torch.arange(L, device=dev)
     fine_ok = (seg_ok[..., None] & (fine_d < D)).reshape(B, R, C * L)
     fine_d = fine_d.clamp(max=D - 1).reshape(B, R, C * L)
@@ -148,8 +170,8 @@ def _two_level_hits_lazy(campos, raydir, tvals, grid: PointGrid, SR: int):
     def pos(t):                                     # (B,R,n) -> (B,R,n,3)
         return campos[:, None, None, :] + raydir[:, :, None, :] * t[..., None]
 
-    seg_ok, seg_idx = _coarse_segment_hits(pos(ts4[..., min(L // 2, L - 1)]),
-                                           grid, C)
+    seg_ok, seg_idx = coarse_segment_hits(
+        pos(ts4[..., min(L // 2, L - 1)]), spec, grid.coarse_occ, C)
     t_fine = torch.gather(ts4, 2, seg_idx[..., None].expand(-1, -1, -1, L))
     fine_d = seg_idx[..., None] * L + torch.arange(L, device=dev)
     fine_ok = (seg_ok[..., None] & (fine_d < D)).reshape(B, R, C * L)
@@ -215,8 +237,7 @@ def query_neighbors(grid: PointGrid, raypos: torch.Tensor, K: int, SR: int,
     sample_loc_w, smask, sample_label = mask_and_compact_samples(
         raypos, grid, SR, ray_label, campos=campos, raydir=raydir,
         tvals=tvals)
-    # the radius test runs in f32, like jnp.asarray(radius, f32) ** 2
-    r2 = float(np.float32(radius_limit) * np.float32(radius_limit))
+    r2 = radius2(radius_limit)
 
     if spec.nbr_cache > 0 and grid.nbr_packed.shape[0] > 0:
         # one gather of a packed cache row per shading point
@@ -247,32 +268,52 @@ def query_neighbors(grid: PointGrid, raypos: torch.Tensor, K: int, SR: int,
             return QueryResult(
                 sample_pidx, sample_loc_w, smask,
                 (sample_pidx.reshape(B, R, -1) >= 0).any(dim=-1))
-        off, cand = unpack_cache(rows, spec)
-        # cache rows hold offsets from the voxel centre
-        cxyz = center[..., None, :] + off.to(torch.float32)
-        cand_ok = slot_ok[..., None] & (cand >= 0)
-        d2 = sqnorm3(cxyz - sample_loc_w[..., None, :])
-        flat_shape = (B, R, SR, cand.shape[-1])
+        cand, cand_ok, d2, flat_shape = cache_candidates(
+            rows, center, sample_loc_w, slot_ok, spec)
     else:
         cand, cand_ok, d2, flat_shape = bucket_candidates(
             grid, sample_loc_w, smask)
 
-    in_radius = (d2 <= r2) if r2 > 0 else torch.ones_like(cand_ok)
-    ok = cand_ok & in_radius
     if guided:
-        ok = ok & _guide_accept(cand, sample_label, points_label,
-                                points_label_prob, guide_u)
-    big = torch.finfo(torch.float32).max
-    d2m = torch.where(ok, d2, torch.full_like(d2, big)).reshape(flat_shape)
-    top_d2, top_idx = topk_stable(d2m, K, largest=False)
-    sel = torch.gather(cand.reshape(flat_shape), -1, top_idx)
-    sample_pidx = torch.where(top_d2 < big, sel, torch.full_like(sel, -1))
-    return QueryResult(sample_pidx.to(torch.int32), sample_loc_w, smask,
+        cand_ok = cand_ok & guide_accept(cand, sample_label, points_label,
+                                          points_label_prob, guide_u)
+    sample_pidx = select_k(cand, cand_ok, d2, flat_shape, K, r2)
+    return QueryResult(sample_pidx, sample_loc_w, smask,
                        (sample_pidx.reshape(B, R, -1) >= 0).any(dim=-1),
                        sample_label)
 
 
-def _guide_accept(cand, sample_label, points_label, points_label_prob,
+def radius2(radius_limit: float) -> float:
+    """The radius test's bound, squared in float32 like
+    jnp.asarray(radius, f32) ** 2; 0 disables the test."""
+    return float(np.float32(radius_limit) * np.float32(radius_limit))
+
+
+def cache_candidates(rows, center, sample_loc_w, slot_ok, spec):
+    """Candidates of packed cache rows (B,R,SR,C*W) whose offsets are from
+    the voxel centres `center` (B,R,SR,3): (cand (B,R,SR,C) ids, cand_ok,
+    d2 to the shading points, flat_shape)."""
+    off, cand = unpack_cache(rows, spec)
+    cxyz = center[..., None, :] + off.to(torch.float32)
+    cand_ok = slot_ok[..., None] & (cand >= 0)
+    d2 = sqnorm3(cxyz - sample_loc_w[..., None, :])
+    return cand, cand_ok, d2, tuple(slot_ok.shape) + (cand.shape[-1],)
+
+
+def select_k(cand, cand_ok, d2, flat_shape, K: int, r2: float):
+    """The K nearest accepted candidates within the radius, ties in
+    candidate order (XLA top_k): (B,R,SR,K) int32 ids, -1 where fewer."""
+    in_radius = (d2 <= r2) if r2 > 0 else torch.ones_like(cand_ok)
+    ok = cand_ok & in_radius
+    big = torch.finfo(torch.float32).max
+    d2m = torch.where(ok, d2, torch.full_like(d2, big)).reshape(flat_shape)
+    top_d2, top_idx = topk_stable(d2m, K, largest=False)
+    sel = torch.gather(cand.reshape(flat_shape), -1, top_idx)
+    return torch.where(top_d2 < big, sel,
+                       torch.full_like(sel, -1)).to(torch.int32)
+
+
+def guide_accept(cand, sample_label, points_label, points_label_prob,
                   guide_u):
     """The semantic-guidance predicate over the candidates (reference
     query_point_indices_worldcoords.py:548-556, JAX ops/query.py:386-412):

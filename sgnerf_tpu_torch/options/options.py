@@ -20,13 +20,18 @@ off the TPU. The opt-in training gathers are the JAX package's:
 `--gather_dtype bfloat16|int8`, `--gather_round stochastic` and the six
 `--gather_vjp` transposes (scatter, sorted, f32, spread, raydedup,
 batchdedup; `models/renderer.py`), refused with JAX's ValueErrors.
-`--ray_shards`/`--scene_shards` above 1 raise NotImplementedError naming
-the ROADMAP item that ports them.
+`--ray_shards N` (rays split over N devices) and `--scene_shards N` (the
+scene cut into N x-slabs) run on the devices `--gpu_ids` lists, one id a
+shard and repeats allowed (`0,0`: two shards on card 0; `-1,-1`: two on
+the CPU); `--ray_shards -1` takes one shard a listed id. Fewer ids than
+shards, or both flags at once, raise ValueError: nothing falls back to
+fewer shards (`shard_devices`).
 """
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 
 import torch
 
@@ -216,7 +221,16 @@ class BaseOptions:
             self.parser.add_argument(f"--{name}", **kw)
 
     def parse(self, args=None):
-        opt, unknown = self.parser.parse_known_args(args)
+        args = list(sys.argv[1:] if args is None else args)
+        # "--gpu_ids -1,-1" (two CPU shards): argparse would read the value
+        # as an option; bind it to its flag
+        joined = []
+        for a in args:
+            if joined and joined[-1] == "--gpu_ids" and a.startswith("-"):
+                joined[-1] = f"--gpu_ids={a}"
+            else:
+                joined.append(a)
+        opt, unknown = self.parser.parse_known_args(joined)
         if unknown:
             print(f"[options] ignoring unknown flags: {unknown}")
         opt.is_train = self.is_train
@@ -248,28 +262,55 @@ class EditOptions(BaseOptions):
     is_train = False
 
 
+def devices_from_opt(opt):
+    """--gpu_ids -> one torch.device an id: -1 the CPU, otherwise
+    cuda:<id>. No probe of the machine: without a card the first CUDA
+    allocation fails."""
+    ids = [i.strip() for i in str(getattr(opt, "gpu_ids", "0")).split(",")
+           if i.strip()]
+    return [torch.device("cpu") if int(i) < 0 else torch.device("cuda", int(i))
+            for i in ids or ["0"]]
+
+
 def device_from_opt(opt) -> torch.device:
-    """--gpu_ids: "-1" is the CPU, otherwise cuda:<first id>. No probe of
-    the machine: without a card the first CUDA allocation fails."""
-    first = str(getattr(opt, "gpu_ids", "0")).split(",")[0].strip()
-    if int(first) < 0:
-        return torch.device("cpu")
-    return torch.device("cuda", int(first))
+    """The first --gpu_ids device: the master, where a model lives."""
+    return devices_from_opt(opt)[0]
 
 
-def _unsupported(flag: str, item: str):
-    raise NotImplementedError(
-        f"{flag} is not ported yet (ROADMAP.md, queue 1 {item}); run the "
-        "JAX package sgnerf_tpu for it")
+def shard_counts(opt):
+    """(ray shards, scene shards) the flags ask for; 0 for unsharded.
+    --ray_shards -1 is one shard a --gpu_ids entry; a count of 1 (or a
+    --scene_shards below 2) runs unsharded, as in the JAX package."""
+    n_ray = int(getattr(opt, "ray_shards", 0) or 0)
+    if n_ray == -1:
+        n_ray = len(devices_from_opt(opt))
+    n_scene = int(getattr(opt, "scene_shards", 0) or 0)
+    if n_ray > 1 and n_scene:
+        raise ValueError(
+            "--ray_shards and --scene_shards are mutually exclusive "
+            "(rays-DP replicates the scene; slab sharding splits it)")
+    return (n_ray if n_ray > 1 else 0), (n_scene if n_scene > 1 else 0)
+
+
+def shard_devices(opt, n: int):
+    """The first n --gpu_ids devices, one a shard; fewer ids than shards
+    raise (no path runs on fewer shards than asked)."""
+    devs = devices_from_opt(opt)
+    if len(devs) < n:
+        raise ValueError(
+            f"{n} shards need {n} --gpu_ids entries, one a shard (repeats "
+            f"allowed: 0,0 puts two shards on card 0); got "
+            f"--gpu_ids {getattr(opt, 'gpu_ids', '0')}")
+    return devs[:n]
 
 
 def _check_slice(opt):
-    """Refuse the flags of modules the port does not have yet (both CLIs
-    call it at startup; configs_from_opt too)."""
-    if int(getattr(opt, "scene_shards", 0) or 0) > 1:
-        _unsupported("--scene_shards", "item 19")
-    if int(getattr(opt, "ray_shards", 0) or 0) not in (0, 1):
-        _unsupported("--ray_shards", "item 18")
+    """Refuse, at startup, what the flags cannot run (both CLIs call it;
+    configs_from_opt too): shards without a device each, both kinds of
+    shards at once."""
+    n_ray, n_scene = shard_counts(opt)
+    if n_ray or n_scene:
+        shard_devices(opt, n_ray or n_scene)
     for xyz_flag in ("agg_feat_xyz_mode", "agg_alpha_xyz_mode",
                      "agg_color_xyz_mode"):
         if str(getattr(opt, xyz_flag, "None")) != "None":

@@ -6,8 +6,10 @@ renderer's prob outputs, pixels that see the scan next to pixels that miss
 it harvest a new point at their sample of largest opacity, and the cloud
 grows into its free slots (SceneModel.grow_points rebuilds the grid).
 The probe render runs the eval render's kernels (K2 under `--fused_mlp
-auto` on the card). The ray-sharded probe render and the spatial-shard
-sync wait for the multi-GPU slice (ROADMAP.md, queue 1 items 18-19).
+auto` on the card); under --ray_shards each probe chunk's rays are split
+over the shards (parallel/sharded.py). Under --scene_shards the probes
+render the world grid of the cloud, which reading `model.cloud` first
+brings up to the slabs' trained attributes, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -69,10 +71,17 @@ def render_probe_maps(model, item, chunk_rays: int = 2304,
                near=float(item["near"]), far=float(item["far"]),
                bg_color=t(item["bg_color"]))
     parts = {k: [] for k in PROBE_KEYS}
+    render = render_rays
+    if model.ray_mesh is not None:
+        from ..parallel.sharded import render_rays_sharded
+
+        def render(params, cloud, grid, cfg, **kw):
+            return render_rays_sharded(params, cloud, grid, cfg,
+                                       model.ray_mesh, **kw)
     for s in range(0, raydir.shape[0], chunk_rays):
-        out = render_rays(model.params, model.cloud, grid, model.cfg,
-                          raydir=raydir[None, s:s + chunk_rays],
-                          table=model.table, prob=True, **cam)
+        out = render(model.params, model.cloud, grid, model.cfg,
+                     raydir=raydir[None, s:s + chunk_rays],
+                     table=model.table, prob=True, **cam)
         for k in PROBE_KEYS:
             parts[k].append(out[k][0])
     maps: Dict[str, np.ndarray] = {}

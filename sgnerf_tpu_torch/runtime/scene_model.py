@@ -1,16 +1,29 @@
 """SceneModel: point cloud, grid, parameters, training state, checkpoints
 and full-frame rendering.
 
-Counterpart of `sgnerf_tpu/runtime/scene_model.py` for one device:
-checkpoint resume (`{iter}_net_ray_marching.{npz,pth}`, resume_iter
-latest|best|N; an edited `.pth`'s per-point Rw2c is factored into a part
-table, `factor_rotations`), the point bootstrap from the dataset's init points
-(`setup_from_points`), the train step (`optimize`, `optimize_multi`),
-prune and grow with grid rebuild (growing's probes: runtime/growing.py),
-checkpoint save and `.pth` export, and the chunked full-frame render. The
-sharded paths come with later slices. `--chunk_stack` is accepted and
+Counterpart of `sgnerf_tpu/runtime/scene_model.py`: checkpoint resume
+(`{iter}_net_ray_marching.{npz,pth}`, resume_iter latest|best|N; an edited
+`.pth`'s per-point Rw2c is factored into a part table, `factor_rotations`),
+the point bootstrap from the dataset's init points (`setup_from_points`),
+the train step (`optimize`, `optimize_multi`), prune and grow with grid
+rebuild (growing's probes: runtime/growing.py), checkpoint save and `.pth`
+export, and the chunked full-frame render. `--chunk_stack` is accepted and
 ignored: the JAX package renders B chunks per `lax.map` body with it, and
 here every chunk is its own plain call.
+
+Multi-device (parallel/): `--ray_shards N` splits every batch's and every
+render chunk's rays over N devices, the scene replicated; `--scene_shards
+N` cuts the scene into N x-slabs (`build_sharded_scene`, rebuilt with the
+grid after prune and grow), each render and train step runs over the
+slabs, and the slabs' trained attributes are folded back into the cloud
+(`_sync_from_spatial`) before anything reads it: save, export, prune, grow,
+the growing probes (on the world grid, as in the JAX package) and
+SemanticDriver's snapshot; refreshed semantics go to the slabs
+(`push_semantics_to_shards`). The devices are --gpu_ids' (options.py
+`shard_devices`), the first of them the model's; fewer ids than shards
+raise at startup. The slabs' point Adam starts afresh with each slab
+build, as the point Adam does after a rebuild; the MLP parameters keep
+theirs.
 
 `--wcoord_query 0` (the flag's default) is Point-NeRF's perspective-space
 query: the train step and the render build each frame's grid in camera
@@ -50,9 +63,11 @@ from ..models.point_cloud import (NeuralPointCloud, build_grid,
 from ..models.renderer import (attribute_table, render_rays,
                                render_rays_perspective)
 from ..models.train import (TrainState, adam_init, create_train_state,
-                            train_step, train_step_multi, trained_fields)
+                            train_step_multi, trained_fields)
 from ..ops.query_pers import perspective_grid, perspective_spec_from_camera
-from ..options.options import configs_from_opt, device_from_opt
+from ..options.options import (configs_from_opt, device_from_opt,
+                               shard_counts, shard_devices)
+from ..parallel.mesh import ShardGroup
 from .native import nearest_view, vox_downsample_closest
 
 
@@ -121,6 +136,30 @@ class SceneModel:
             print("[scene_model] wcoord_query=0: per-frame perspective-space "
                   "querier (reference query_point_indices.py); growing "
                   "probes still use the world grid")
+        # --ray_shards / --scene_shards (parallel/): the shards' devices
+        self.ray_mesh: Optional[ShardGroup] = None
+        self.mesh: Optional[ShardGroup] = None
+        self.sharded_scene = self.sspec = None
+        self._spatial_tstate = None     # made at the first sharded step
+        self._pending_spatial_cloud = None
+        self._shard_tables = None       # the slabs' eval attribute tables
+        self._spatial_dirty = False     # the slabs trained past the cloud
+        n_ray, n_scene = shard_counts(opt)
+        if n_ray or n_scene:
+            group = ShardGroup(shard_devices(opt, n_ray or n_scene))
+            if group.master != ShardGroup([self.device]).master:
+                raise ValueError(
+                    f"the first --gpu_ids entry ({group.master}) is the "
+                    f"model's device, given as {self.device}")
+            devs = [str(d) for d in group.devices]
+            if n_ray:
+                self.ray_mesh = group
+                print(f"[ray_shards] rays split over {n_ray} shards on "
+                      f"{devs} (scene and parameters replicated)")
+            else:
+                self.mesh = group
+                print(f"[scene_shards] the scene cut into {n_scene} x-slabs "
+                      f"on {devs}")
 
     @property
     def params(self):
@@ -128,6 +167,8 @@ class SceneModel:
 
     @property
     def cloud(self) -> NeuralPointCloud:
+        """The point cloud, with the slabs' trained attributes folded in."""
+        self._sync_from_spatial()
         return self.state.cloud
 
     @property
@@ -138,7 +179,9 @@ class SceneModel:
     def table(self) -> torch.Tensor:
         """The eval renders' packed attribute table of the current cloud."""
         if self._table is None:
-            with torch.no_grad():
+            # a plain tensor even inside inference_mode: its copies to other
+            # shards' cards are kept while it is unchanged (ShardGroup)
+            with torch.inference_mode(False), torch.no_grad():
                 self._table = attribute_table(
                     self.cloud, self.cfg.gather_dtype,
                     bool(self.cfg.semantic_guidance))
@@ -147,9 +190,91 @@ class SceneModel:
     def set_semantics(self, label_prob: torch.Tensor, label: torch.Tensor,
                       sem_embedding: torch.Tensor):
         """BPNet's per-point outputs into the cloud (SemanticDriver's
-        refresh); the cached eval table goes with the old ones."""
+        refresh), and into the slabs under --scene_shards; the cached eval
+        tables go with the old ones."""
         set_bpnet_feats(self.cloud, label_prob, label, sem_embedding)
         self._table = None
+        self.push_semantics_to_shards()
+
+    # ------------------------------------------------------------ scene shards
+
+    def _setup_spatial(self, cloud: NeuralPointCloud):
+        """--scene_shards: cut the cloud into the group's x-slabs and build
+        each slab's tables on its device. In perspective mode the halo
+        width needs the frustum spec: the build waits for ensure_pspec."""
+        if self.mesh is None:
+            return
+        if self.perspective and self.pspec is None:
+            self._pending_spatial_cloud = cloud
+            return
+        from ..parallel.spatial import (build_sharded_scene,
+                                        perspective_halo_voxels)
+        # the old slabs go before the new ones are built
+        self.sharded_scene = self._spatial_tstate = self._shard_tables = None
+        self._spatial_dirty = False
+        halo = (perspective_halo_voxels(self.spec, self.pspec)
+                if self.perspective else None)
+        # plain tensors, trainable, also when a render's ensure_pspec (in
+        # inference mode) triggers the build
+        with torch.inference_mode(False):
+            self.sharded_scene, self.sspec = build_sharded_scene(
+                cloud, self.spec, self.mesh.size, devices=self.mesh.devices,
+                halo_override=halo, build_tables=not self.perspective)
+        rows = [s.nbr_packed.shape[0] for s in self.sharded_scene.shards]
+        print(f"[scene_shards] {self.mesh.size} slabs of "
+              f"{self.sspec.cap_pts} point rows (of {cloud.capacity})"
+              + (f", halo {self.sspec.halo} (perspective)"
+                 if self.perspective else
+                 f", {rows[0]} cache rows each (of "
+                 f"{self.grid.nbr_packed.shape[0]})"))
+
+    def _sync_from_spatial(self):
+        """Fold the slabs' trained fields into the cloud (a halo point's
+        copies are equal: the halo gradient sync keeps them so)."""
+        if not self._spatial_dirty:
+            return
+        self._spatial_dirty = False
+        cloud, master = self.state.cloud, self.mesh.master
+        with torch.no_grad():
+            for f in trained_fields(self.tcfg):
+                dst = getattr(cloud, f)
+                for s in self.sharded_scene.shards:
+                    n = s.n_rows
+                    dst[s.gid[:n].to(master)] = getattr(s.cloud, f)[:n].to(
+                        master)
+        self._table = None
+
+    def push_semantics_to_shards(self):
+        """The cloud's BPNet outputs (label, label_prob, sem_embedding) into
+        every slab's rows, halo copies too."""
+        if self.sharded_scene is None:
+            return
+        cloud, master = self.state.cloud, self.mesh.master
+        with torch.no_grad():
+            for s, dev in zip(self.sharded_scene.shards, self.mesh.devices):
+                idx = s.gid[:s.n_rows].to(master)
+                for f in ("label", "label_prob", "sem_embedding"):
+                    getattr(s.cloud, f)[:s.n_rows] = getattr(
+                        cloud, f)[idx].to(dev)
+        self._shard_tables = None
+
+    def _spatial_state(self):
+        from ..parallel.spatial import create_spatial_train_state
+        if self._spatial_tstate is None:
+            self._spatial_tstate = create_spatial_train_state(
+                self.state.params, self.sharded_scene, self.tcfg,
+                opt_net=self.state.opt_net, step=self.state.step)
+        return self._spatial_tstate
+
+    def _spatial_tables(self):
+        """The slabs' eval attribute tables, built once per change."""
+        if self._shard_tables is None:
+            with torch.inference_mode(False), torch.no_grad():
+                self._shard_tables = [attribute_table(
+                    s.cloud, self.cfg.gather_dtype,
+                    bool(self.cfg.semantic_guidance))
+                    for s in self.sharded_scene.shards]
+        return self._shard_tables
 
     # ------------------------------------------------------------- checkpoints
 
@@ -260,6 +385,7 @@ class SceneModel:
             params = params_from_jax(params, self.device)
         self.state = create_train_state(params, cloud, self.tcfg)
         self._table = None
+        self._setup_spatial(cloud)
 
     def setup_from_points(self, xyz: np.ndarray, feats: Optional[np.ndarray],
                           labels: Optional[np.ndarray], dataset=None):
@@ -322,6 +448,11 @@ class SceneModel:
         self.pspec = spec
         print(f"[scene_model] perspective frustum grid: vdim={spec.vdim} "
               f"max_o={spec.max_o} P={spec.P}")
+        if self._pending_spatial_cloud is not None:
+            # --scene_shards waited for the frustum spec (the halo width)
+            cloud, self._pending_spatial_cloud = \
+                self._pending_spatial_cloud, None
+            self._setup_spatial(cloud)
 
     # ---------------------------------------------------------------- training
 
@@ -342,17 +473,24 @@ class SceneModel:
         drawn from the model's generator. Returns the losses as device
         scalars (not synchronised). In perspective mode, ensure_pspec must
         have run."""
-        self.state, losses = train_step(
-            self.state, self.grid, self.cfg, self.tcfg, batch,
-            generator=self._generator(), pspec=self._pspec_for_step())
-        self._table = None
-        return losses
+        return self.optimize_multi([batch])[0]
 
     def optimize_multi(self, batches: List[Dict]) -> List[Dict]:
         """G train steps in a row; returns the per-step loss dicts."""
-        self.state, losses = train_step_multi(
-            self.state, self.grid, self.cfg, self.tcfg, batches,
-            generator=self._generator(), pspec=self._pspec_for_step())
+        pspec = self._pspec_for_step()
+        if self.sharded_scene is not None:
+            from ..parallel.spatial import spatial_train_step_multi
+            st, losses = spatial_train_step_multi(
+                self._spatial_state(), self.sspec, self.cfg, self.tcfg,
+                batches, generator=self._generator(), pspec=pspec)
+            self.state.step = st.step
+            self._spatial_dirty = True
+            self._shard_tables = None
+        else:
+            self.state, losses = train_step_multi(
+                self.state, self.grid, self.cfg, self.tcfg, batches,
+                generator=self._generator(), pspec=pspec,
+                ray_mesh=self.ray_mesh)
         self._table = None
         return losses
 
@@ -397,6 +535,7 @@ class SceneModel:
         self.state.opt_pts = adam_init([getattr(cloud, f)
                                         for f in trained_fields(self.tcfg)])
         self._table = None
+        self._setup_spatial(cloud)
 
     def _refit_spec(self, cloud: NeuralPointCloud):
         """After a topology change, recompute the grid spec only when its
@@ -426,7 +565,9 @@ class SceneModel:
         here: the plain attribute gather has no distinct-id cap. With
         `bg_image` (R,3), the per-ray plane background of --bgmodel plane
         replaces the constant one through each ray's background
-        transmission: colour + bgT * (bg_image - bg_color)."""
+        transmission: colour + bgT * (bg_image - bg_color). Under
+        --ray_shards each chunk's rays are split over the shards; under
+        --scene_shards each chunk renders over the slabs."""
         dev = self.device
         self.ensure_pspec(item)
         raydir = torch.as_tensor(np.asarray(item["raydir"], np.float32),
@@ -442,23 +583,10 @@ class SceneModel:
         bg = torch.as_tensor(np.asarray(item["bg_color"], np.float32),
                              device=dev)
         near, far = float(item["near"]), float(item["far"])
-        table = self.table
+        render = self._chunk_renderer(campos, rot, near, far, bg)
         cols, bgts = [], []
-        cam = dict(campos=campos, camrotc2w=rot, near=near, far=far,
-                   bg_color=bg, table=table)
-        if self.perspective:
-            # the frame's perspective grid, once for all its chunks
-            cam["pgrid"] = perspective_grid(self.cloud.xyz, self.cloud.active,
-                                            rot[0], campos[0], self.pspec)[0]
         for s in range(0, raydir.shape[0], chunk_rays):
-            rd = raydir[None, s:s + chunk_rays]
-            if self.perspective:
-                out = render_rays_perspective(self.params, self.cloud,
-                                              self.pspec, self.cfg, raydir=rd,
-                                              **cam)
-            else:
-                out = render_rays(self.params, self.cloud, self.grid,
-                                  self.cfg, raydir=rd, **cam)
+            out = render(raydir[None, s:s + chunk_rays])
             cols.append(out["coarse_raycolor"][0])
             bgts.append(out["coarse_is_background"][0])
         col = torch.cat(cols)[:R]
@@ -468,3 +596,42 @@ class SceneModel:
                 np.asarray(bg_image, np.float32), device=dev).reshape(-1, 3)
                 - bg)
         return col.cpu().numpy()
+
+    def _chunk_renderer(self, campos, rot, near, far, bg):
+        """A frame's chunk render, raydir (1,Rc,3) -> render output, for the
+        model's mode; what every chunk shares (the eval tables, the frame
+        grids of the perspective path) is built once here."""
+        cam = dict(campos=campos, camrotc2w=rot, near=near, far=far,
+                   bg_color=bg)
+        if self.sharded_scene is not None:
+            from ..parallel.spatial import (frame_grids, render_rays_spatial,
+                                            render_rays_spatial_perspective)
+            cam["tables"] = self._spatial_tables()
+            if self.perspective:
+                pgrids = frame_grids(self.sharded_scene, self.pspec, campos,
+                                     rot)
+                return lambda rd: render_rays_spatial_perspective(
+                    self.params, self.sharded_scene, self.sspec, self.pspec,
+                    self.cfg, raydir=rd, pgrids=pgrids, **cam)
+            return lambda rd: render_rays_spatial(
+                self.params, self.sharded_scene, self.sspec, self.cfg,
+                raydir=rd, **cam)
+        cam["table"] = self.table
+        if self.perspective:
+            # the frame's perspective grid, once for all its chunks
+            with torch.inference_mode(False), torch.no_grad():
+                cam["pgrid"] = perspective_grid(
+                    self.cloud.xyz, self.cloud.active, rot[0].clone(),
+                    campos[0].clone(), self.pspec)[0]
+        if self.ray_mesh is not None:
+            from ..parallel.sharded import render_rays_sharded
+            return lambda rd: render_rays_sharded(
+                self.params, self.cloud, self.grid, self.cfg, self.ray_mesh,
+                raydir=rd, pspec=self.pspec if self.perspective else None,
+                **cam)
+        if self.perspective:
+            return lambda rd: render_rays_perspective(
+                self.params, self.cloud, self.pspec, self.cfg, raydir=rd,
+                **cam)
+        return lambda rd: render_rays(self.params, self.cloud, self.grid,
+                                      self.cfg, raydir=rd, **cam)

@@ -13,7 +13,10 @@ background thread: the point snapshot (a device->host read) is taken on
 the calling thread, then image IO, links, voxelization, the forward and
 the devoxelize overlap the following train steps, and the result is
 applied at the first call after the worker finishes (one refresh in
-flight at a time; a tick due while one runs is skipped).
+flight at a time; a tick due while one runs is skipped). The outputs go
+into the cloud through SceneModel.set_semantics, which with --scene_shards
+also writes them into every slab's rows (`push_semantics_to_shards`, the
+JAX package's semantic.py:77-80).
 
 On a CUDA device every BPNet call runs on SemanticDriver's own stream: the
 worker's kernels overlap the train step's instead of queueing behind them

@@ -1147,3 +1147,77 @@ def test_feedforward_step_on_the_card_matches_the_cpu(dev):
             soft = (step > 0) & (step < 0.999 * lr)
             assert not (off & ~soft).any(), g
             assert off.sum() <= max(1, int(1e-4 * off.numel())), g
+
+
+@pytest.mark.parametrize("kind", ["ray", "scene"])
+def test_two_shards_on_one_card_match_the_unsharded_render(dev, kind):
+    """--ray_shards 2 and --scene_shards 2 on [cuda, cuda]: the eval path's
+    kernels (K1 on the bf16 cache, K2) run in each shard, twice a chunk,
+    and the render equals the unsharded one (RENDER_ATOL of chip_smoke.py,
+    ray_mask equal); the ray-split train step's losses within 1e-5 relative
+    and gradients within K3's tolerance of the unsharded step's, through a
+    float32 table (a bf16 table's scatter-add sums in bf16 in no fixed
+    order: chip_smoke phase 21 holds those)."""
+    from sgnerf_tpu_torch.models import aggregator as tagg
+    from sgnerf_tpu_torch.models import point_cloud as tpc
+    from sgnerf_tpu_torch.models import renderer as tren
+    from sgnerf_tpu_torch.models import train as ttrain
+    from sgnerf_tpu_torch.parallel import (ShardGroup, build_sharded_scene,
+                                           render_rays_sharded,
+                                           render_rays_spatial)
+    rng = np.random.default_rng(3)
+    n = 20000
+    xyz = rng.normal(size=(n, 3)).astype(np.float32)
+    xyz /= np.linalg.norm(xyz, axis=-1, keepdims=True)
+    cloud = tpc.make_point_cloud(
+        xyz, (rng.normal(size=(n, 32)) * 0.1).astype(np.float32),
+        conf=rng.uniform(0.3, 1, (n, 1)), color=xyz * 0.4 + 0.5, dir=xyz,
+        device=dev)
+    spec = tpc.grid_spec_for_cloud(cloud, vsize=[0.04] * 3, vscale=[2] * 3,
+                                   kernel_size=[3] * 3, max_o=65536, P=16,
+                                   cache_dtype="bfloat16")
+    grid = tpc.build_grid(cloud, spec)
+    cfg = tren.RenderConfig(
+        agg=tagg.AggregatorConfig(fused_mlp="cuda", fused_bwd="cuda"),
+        z_depth_dim=64, SR=8, K=8, vsize=(0.08,) * 3, knn_mode="fused",
+        gather_dtype="bfloat16")
+    params = tagg.init_aggregator_params(0, cfg.agg, dev)
+    d = rng.normal(size=(1, 1024, 3)).astype(np.float32) * 0.3
+    d[..., 2] = 1
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    cam = dict(campos=torch.tensor([[0, 0, -3.0]], device=dev),
+               raydir=torch.from_numpy(d).to(dev),
+               camrotc2w=torch.eye(3, device=dev)[None], near=1.0, far=5.0,
+               bg_color=torch.ones(3, device=dev))
+    group = ShardGroup([dev, dev])
+    with torch.no_grad():
+        ref = tren.render_rays(params, cloud, grid, cfg, **cam)
+        fused_knn_select.launches = fused_block1_alpha.launches = 0
+        if kind == "ray":
+            got = render_rays_sharded(params, cloud, grid, cfg, group, **cam)
+        else:
+            scene, sspec = build_sharded_scene(cloud, spec, 2,
+                                               devices=group.devices)
+            got = render_rays_spatial(params, scene, sspec, cfg, **cam)
+    assert fused_knn_select.launches == fused_block1_alpha.launches == 2
+    assert bool(ref["ray_mask"].any())
+    assert torch.equal(got["ray_mask"], ref["ray_mask"])
+    torch.testing.assert_close(got["coarse_raycolor"],
+                               ref["coarse_raycolor"], atol=1e-4, rtol=0)
+    if kind == "scene":
+        return
+    cfg = dataclasses.replace(cfg, gather_dtype="float32")
+    tc = ttrain.TrainConfig()
+    st = ttrain.create_train_state(params, cloud, tc)
+    batch = dict(cam, gt_image=torch.rand((1, 1024, 3), device=dev,
+                                          generator=torch.Generator(
+                                              device=dev).manual_seed(1)))
+    noise = tren.draw_render_noise(torch.Generator(device=dev).manual_seed(
+        2), cfg, 1, 1024, table_shape=(cloud.capacity, 42))
+    runs = [ttrain.loss_and_grads(st, grid, cfg, tc, batch, noise=noise,
+                                  ray_mesh=m) for m in (None, group)]
+    (rl, rn, rp), (gl, gn, gp) = runs
+    for k in rl:
+        torch.testing.assert_close(gl[k], rl[k], rtol=1e-5, atol=0)
+    for a, b in zip(gn + gp, rn + rp):
+        assert float((a - b).abs().max()) <= 2e-3 * float(b.abs().max())

@@ -34,7 +34,9 @@ for want in ("ops.pallas_gather", "runtime.growing", "dev.probe_gather",
              "utils.blur", "utils.util", "data.prepare_scannet",
              "data.resample", "run.editing", "run.test_edit",
              "run.render_vid", "run.gui", "run.visualize",
-             "run.vis_grow_train", "run.evaluate", "run.result"):
+             "run.vis_grow_train", "run.evaluate", "run.result",
+             "parallel", "parallel.mesh", "parallel.sharded",
+             "parallel.spatial"):
     assert "sgnerf_tpu_torch." + want in names, want
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "triton", "sgnerf_tpu",
@@ -68,6 +70,19 @@ def _imported_roots(path):
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             roots.add(node.module.split(".")[0])
     return roots
+
+
+@pytest.mark.parametrize("name", sorted(
+    f for f in os.listdir(os.path.join(REPO, "sgnerf_tpu_torch", "parallel"))
+    if f.endswith(".py")))
+def test_parallel_package_imports_neither_jax_nor_the_jax_package(name):
+    """Each module of sgnerf_tpu_torch/parallel/ (the multi-device paths)
+    imports torch and the port, never jax, triton, the JAX package or
+    bench.py."""
+    roots = _imported_roots(os.path.join(REPO, "sgnerf_tpu_torch",
+                                         "parallel", name))
+    assert not roots & set(FORBIDDEN), roots & set(FORBIDDEN)
+    assert name == "__init__.py" or "torch" in roots
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
@@ -186,15 +201,16 @@ def test_scene_model_device_comes_from_gpu_ids():
     ["--gather_vjp", "batchdedup"],
 ])
 def test_flags_outside_the_slice_raise(flags):
-    """--scene_shards/--ray_shards above 1 (queue 1 items 18-19) raise;
-    the item-17 flags among these cases, refused until the port took
-    them, resolve to the RenderConfig fields the JAX package's
-    configs_from_opt sets for the same flags."""
+    """Every flag among these cases, each refused until the port took it,
+    resolves to the RenderConfig fields the JAX package's configs_from_opt
+    sets for the same flags. --scene_shards/--ray_shards above 1 take one
+    --gpu_ids entry a shard: with one id they raise ValueError (nothing
+    runs on fewer shards than asked), with one an id they resolve."""
     from sgnerf_tpu_torch.options import configs_from_opt
     if any(f.endswith("_shards") for f in flags):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="--gpu_ids"):
             configs_from_opt(_opt(flags))
-        return
+        flags = flags + ["--gpu_ids", "-1,-1,-1,-1"]
     _same_render_config(flags)
 
 

@@ -432,18 +432,19 @@ def test_train_ft_cli_runs_and_writes_checkpoints(scans, tmp_path):
                                    ["--gather_dtype", "int8"],
                                    ["--gather_dtype", "bfloat16"]])
 def test_train_ft_refuses_unported_flags_at_startup(scans, tmp_path, flags):
-    """The shard flags (queue 1 items 18-19) are refused before any work.
-    The opt-in gathers, refused until the port took them, train (int8: the
-    forward's int8 gather; bf16 with stochastic rounding and batchdedup's
-    transpose) and test_ft renders the checkpoint."""
+    """Each flag, refused until the port took it, trains and test_ft
+    renders the checkpoint: the shard flags on two CPU shards (--gpu_ids
+    -1,-1), after the one-id run is refused before any work; the opt-in
+    gathers (int8: the forward's int8 gather; bf16 with stochastic
+    rounding and batchdedup's transpose)."""
     import contextlib
     import io
     from sgnerf_tpu_torch.run import test_ft, train_ft
     if any(f.endswith("_shards") for f in flags):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="--gpu_ids"):
             train_ft.main(_train_flags(scans, str(tmp_path), flags))
         assert not (tmp_path / "t").exists()
-        return
+        flags = flags + ["--gpu_ids", "-1,-1"]
     if flags[-1] == "bfloat16":
         flags = flags + ["--gather_round", "stochastic",
                          "--gather_vjp", "batchdedup"]
