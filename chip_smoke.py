@@ -60,9 +60,13 @@ fine-tune train step (the flags of scene0113_00_default.sh). Phases:
      checkpoints and the test PSNR line;
   9. the phase-3 checkpoint loaded again, then the phase-4 frame with
      --fused_color on (every counter reset just before): K4 and K1 launch
-     once a chunk, K2 never, and the image agrees with the phase-4 frame;
+     once a chunk, K2 never on its own (K4's first launch is K2's kernel,
+     counted under K4), and the image agrees with the phase-4 frame;
  10. the same with --fused_march on: K5 (and K1) once a chunk, K4 and K2
-     never, the image agrees with the phase-4 frame;
+     never, the image agrees with the phase-4 frame, and in f32 also
+     within the JAX package's own limit for the march
+     (tests/test_fused_agg.py test_fused_march_matches_standard_render,
+     2e-5);
  11. the same with RenderConfig(knn_mode="dedup") (tiles of 64 rays, a
      cap of 160 cache rows a tile): K6 once a chunk, K1 never; the shading
      points past their tile's cap and the distinct cache rows a tile; on
@@ -78,7 +82,13 @@ fine-tune train step (the flags of scene0113_00_default.sh). Phases:
      against the plain march run on K4's outputs, each at a limit below
      the gap between the kernel's bf16 and f32 modes, and the plain
      colour head's per-layer bf16 rounding flips between K2's and the
-     plain reduced rows;
+     plain reduced rows; K4's and K5's bounds with the colour products
+     priced on the unit they run on (bf16 tensor cores, or 3xTF32), K4 -
+     K2 and K5 - K2 (K2 timed on the same chunk), the colour launch alone
+     (fused_color_head on K2's rows: its time in each mode, registers,
+     shared memory, blocks an SM and the HGMMA count of its SASS, which
+     must not be 0) and, as K4's and K5's library_ms, cuBLAS's four colour
+     products (bf16 in, f32 out) at the chunk's shape;
  13. the train step of phase 6 with --fused_color on: one step's loss and
      gradients equal phase 6's kernel path (K2 + the colour head outside
      + K3) from the same state and noise; then 3 steps, each launching K4,
@@ -242,17 +252,27 @@ W_IMG, H_IMG, FOCAL = 640, 480, 580.0
 # a one-ulp difference before the cast can flip an input's bf16 rounding
 K2_TOL = {False: dict(atol=1e-4, rtol=1e-4), True: dict(atol=2e-2, rtol=1e-2)}
 # bf16 mode, K4 vs the plain colour head on the K2 kernel's reduced rows
-# (K4 computes them with K2's tile body, bit for bit), and K5 vs the plain
-# march on K4's outputs (K5 runs K4's colour head on the same rows). Against
-# the plain version (K2_TOL) a one-ulp difference of the K-sum flips a
-# colour input's bf16 rounding, and the flip travels to the logits (1.6e-2
-# on a chunk). Here only the colour layers' summation order is left (K4: a
-# flipped hidden rounding moved 3 of 2004 test logits by <= 5e-4) and the
-# march's exp (K5). Each limit lies below the kernel's bf16-vs-f32 gap
+# (K4's first launch is K2's kernel, bit for bit), taking the kernel's
+# hidden roundings where the two sums round a midpoint apart
+# (ops/fused_agg.py color_tail_on_roundings, FLIP_BOUND), and K5 vs the
+# plain march on K4's outputs (K5 runs K4's colour head on the same
+# rows). Against the plain version (K2_TOL) a one-ulp difference
+# of the K-sum flips a colour input's bf16 rounding, and the flip travels
+# to the logits (1.6e-2 on a chunk). Here only the last colour layer's
+# summation order is left (K4) and the march's exp (K5). Each limit lies
+# below the kernel's bf16-vs-f32 gap
 COLOR_SOUND_TOL = {"K4": dict(atol=2e-3, rtol=0.0),
                    "K5": dict(atol=1e-6, rtol=0.0)}
+# FLIP_BOUND's basis (ops/fused_agg.py): the colour head's sums on the
+# tensor cores within 2 units of n 2^-24 sum |x w| of float64's (rounded
+# toward zero), cuBLAS's within 1 (to nearest); phase 12 measures both on
+# the chunk's last colour layer and holds them to these
+SUM_UNITS = {"tensor cores": 2.0, "cuBLAS": 1.0}
 # render of 512 rays, kernel path vs un-fused path, f32 compute
 RENDER_ATOL = 1e-4
+# tests/test_fused_agg.py test_fused_march_matches_standard_render's own
+# limit for the march kernel's frame against the standard render (f32)
+MARCH_JAX_ATOL = 2e-5
 # K3 vs its plain version (f32), per output tensor, relative to the plain
 # tensor's largest magnitude: summation order (f32); a flipped bf16
 # rounding of a product input (bf16). K3 is the gradient of the forward
@@ -773,12 +793,13 @@ def main():
     paths = phase9_11_frames(model, item, col, k1_host)
     del model, k1_host
     torch.cuda.empty_cache()
+    stamp("phases 9-11")
+
     # ---- 12. K4-K6 vs their plain versions
     records.update(phase12_k4_k6(paths))
     del paths
     torch.cuda.empty_cache()
-
-    stamp("phases 9-12")
+    stamp("phase 12")
 
     # ---- 13. the train step with the colour head in kernel K4
     phase13_train_fused_color(item)
@@ -1118,6 +1139,10 @@ def phase9_11_frames(model, item, col, k1_host):
             assert n_over == 0, n_over
         if n_over == 0:
             assert diff <= RENDER_ATOL, (name, diff)
+        if key == "K5" and cfg.agg.compute_dtype == "float32":
+            log(f"phase 10: K5 f32 frame vs the phase-4 frame: max |diff| "
+                f"{diff:.3e} (the JAX package's limit {MARCH_JAX_ATOL})")
+            assert diff <= MARCH_JAX_ATOL, diff
         if key is not None:
             out[key] = (store[name], launches)
     return out
@@ -1206,12 +1231,25 @@ def phase12_sound_bf16(key, args, kwargs, got_bf16, got_f32):
     """Phase 12, bf16: K4 against the plain colour head on the K2 kernel's
     reduced rows, K5 against the plain march on K4's outputs; the limit
     must lie below the gap between the kernel's bf16 and f32 modes, so
-    that a kernel that never rounds fails. For K4, where the bf16
-    difference to the plain version comes from: the flips of the plain
-    colour head's bf16 roundings between K2's and the plain reduced
-    rows."""
+    that a kernel that never rounds fails. K4's colour head sums on the
+    tensor cores, the plain one through cuBLAS: a hidden value within the
+    two f32 sums' difference of a bf16 midpoint rounds either way, and the
+    flip travels to the logits. So the plain head takes the kernel's
+    rounding there (color_tail_on_roundings, on the colour launch's own
+    hidden values): every hidden value must be a bf16 value, at most
+    FLIP_SHARE of a layer's may flip, and each flip must have the plain
+    pre-activation within FLIP_BOUND units of the f32 sums' error bound of
+    the values that round to the kernel's. FLIP_BOUND's basis is measured
+    first: the last layer's sums on the tensor cores and through cuBLAS
+    against float64 (SUM_UNITS). The difference from the fully plain head,
+    and the plain colour head's flips between K2's and the plain reduced
+    rows, are logged."""
     import torch
-    from sgnerf_tpu_torch.ops.fused_agg import fused_block1_alpha_plain
+    from sgnerf_tpu_torch.ops.fused_agg import (FLIP_BOUND, FLIP_SHARE,
+                                                _bf16, color_head_hidden,
+                                                color_tail_on_roundings,
+                                                fused_block1_alpha_plain,
+                                                sum_error_units)
     kw = {k: v for k, v in kwargs.items() if k != "bwd"}
     kw["bf16"] = True
     tol = COLOR_SOUND_TOL[key]
@@ -1222,11 +1260,44 @@ def phase12_sound_bf16(key, args, kwargs, got_bf16, got_f32):
     limit = tol["atol"] + tol["rtol"] * float(ref.abs().max())
     what = ("the plain colour head on K2's reduced rows" if key == "K4"
             else "the plain march on K4's outputs")
-    log(f"phase 12: {key} bf16 vs {what}: max |diff| {err:.3e} (tolerance "
-        f"{tol}); kernel bf16 vs f32 mode: max |diff| {gap:.3e}")
+    held = (f"tolerance {tol}" if key == "K5"
+            else "not held: the next line's is")
+    log(f"phase 12: {key} bf16 vs {what}: max |diff| {err:.3e} ({held}); "
+        f"kernel bf16 vs f32 mode: max |diff| {gap:.3e}")
     if key == "K4":
         feat, d, w, vd = args[:4]
         block1, alpha, color = args[-3:]
+        head, hid = color_head_hidden(torch.cat([fa_k2, ref[:, :1]], -1), vd,
+                                      color, vf=kw["vf"], bf16=True)
+        assert torch.equal(head, got_bf16)      # K4's second launch
+        x, wl, bl = hid[-1], _bf16(color[-1]["w"]), color[-1]["b"]
+        units = {"tensor cores": sum_error_units(head[:, 1:], x, wl, bl),
+                 "cuBLAS": sum_error_units(x @ wl + bl, x, wl, bl)}
+        exact = x.double() @ wl.double() + bl.double()
+        toward_zero = float((head[:, 1:].double().abs() <= exact.abs())
+                            .double().mean())
+        log(f"phase 12: K4 bf16, the last colour layer's {x.shape[0]} x "
+            f"{wl.shape[1]} sums of {x.shape[1]} bf16 products against "
+            f"float64: largest error in units of n 2^-24 sum |x w| "
+            f"{ {k: round(v, 4) for k, v in units.items()} } (limits "
+            f"{SUM_UNITS}, FLIP_BOUND {FLIP_BOUND} their sum); the "
+            f"kernel's |sum| at or below the exact one in "
+            f"{toward_zero:.4f} of them")
+        assert all(units[k] <= SUM_UNITS[k] for k in units), units
+        # raises on unrounded hidden values, more flips than FLIP_SHARE of
+        # a layer, or a flip past FLIP_BOUND units of the plain sum
+        logits, flips, worst = color_tail_on_roundings(
+            fa_k2, vd, color, hid, vf=kw["vf"])
+        ref = torch.cat([ref[:, :1], logits], dim=-1)
+        err = float((got_bf16 - ref).abs().max())
+        log(f"phase 12: K4 bf16, hidden values all bf16; roundings the "
+            f"tensor cores' and cuBLAS's f32 sums put a midpoint (or "
+            f"LeakyReLU's kink) apart per hidden layer {flips} of "
+            f"{fa_k2.shape[0]} x {hid.shape[-1]} (limit {FLIP_SHARE} of "
+            f"them), the plain pre-activation within {worst:.3f} units of "
+            f"the kernel's rounding (limit {FLIP_BOUND}); K4 vs the plain "
+            f"colour head taking those roundings: max |diff| {err:.3e} "
+            f"(tolerance {tol})")
         fa_p, _ = fused_block1_alpha_plain(
             feat, d, w, block1, alpha, K=kw["K"], nf=kw["nf"], df=kw["df"],
             bf16=True)
@@ -1239,6 +1310,94 @@ def phase12_sound_bf16(key, args, kwargs, got_bf16, got_f32):
             f"{torch.equal(got_bf16[:, :1], ref[:, :1])}")
     assert torch.allclose(got_bf16, ref, **tol), (key, err)
     assert gap > limit, (key, gap, limit)
+
+
+def k2_on_chunk_ms(args, kwargs):
+    """Phase 12: K2 alone on K4's or K5's chunk ({bf16: ms}), so that K4 -
+    K2 and K5 - K2 (the colour head's cost) come from one call."""
+    import torch
+    from sgnerf_tpu_torch.ops.fused_agg import fused_block1_alpha
+    feat, d, w = args[:3]
+    block1, alpha = args[-3:-1]
+    kw = dict(K=kwargs["K"], nf=kwargs["nf"], df=kwargs["df"])
+    with torch.inference_mode():
+        return {bf16: cuda_ms(lambda: fused_block1_alpha(
+            feat, d, w, block1, alpha, bf16=bf16, **kw))
+            for bf16 in (True, False)}
+
+
+def color_products_ms(fa, vd, color, vf):
+    """The yardstick beside K4 and K5 (library_ms; the port never calls
+    it): cuBLAS's four colour products at the chunk's shape, bf16 in and
+    f32 out (torch.mm's out_dtype; where this torch lacks it, bf16 out),
+    each on its own bf16 input of the layer's shape."""
+    import torch
+    from sgnerf_tpu_torch.ops.pe import positional_encoding
+    x = torch.cat([fa, positional_encoding(vd, vf, ori=True)[..., 3:]],
+                  dim=-1).to(torch.bfloat16)
+    ins = [x] + [torch.randn(x.shape[0], l_["w"].shape[0], device=x.device,
+                             dtype=torch.bfloat16) for l_ in color[1:]]
+    ws = [l_["w"].to(torch.bfloat16) for l_ in color]
+    try:
+        torch.mm(ins[0], ws[0], out_dtype=torch.float32)
+        kw, out = dict(out_dtype=torch.float32), "f32"
+    except TypeError:
+        kw, out = {}, "bf16"
+
+    def products():
+        for a, wl in zip(ins, ws):
+            torch.mm(a, wl, **kw)
+    return cuda_ms(products), out
+
+
+def phase12_color_head_alone(args, kwargs):
+    """Phase 12: K4's and K5's second launch alone (fused_color_head on the
+    K2 kernel's reduced rows of the chunk): its time in each mode against
+    the plain colour head, registers, shared memory and blocks an SM, and
+    the HGMMA count of its SASS (the colour products run on the tensor
+    cores: it fails on none); returns the cuBLAS yardstick's ms."""
+    import torch
+    from sgnerf_tpu_torch.ops import _cuda
+    from sgnerf_tpu_torch.ops.fused_agg import (color_head_plain,
+                                                fused_block1_alpha,
+                                                fused_color_head,
+                                                fused_color_head_resources)
+    feat, d, w, vd = args[:4]
+    block1, alpha, color = args[-3:]
+    vf = kwargs["vf"]
+    C = block1[0]["w"].shape[1]
+    n = len(color)
+    Nh = color[0]["w"].shape[1] if n > 1 else 3
+    with torch.inference_mode():
+        for bf16 in (True, False):
+            red = torch.cat(fused_block1_alpha(
+                feat, d, w, block1, alpha, K=kwargs["K"], nf=kwargs["nf"],
+                df=kwargs["df"], bf16=bf16), dim=-1)
+            t_h = cuda_ms(lambda: fused_color_head(red, vd, color, vf=vf,
+                                                   bf16=bf16))
+            t_p = cuda_ms(lambda: color_head_plain(red, vd, color, vf=vf,
+                                                   bf16=bf16))
+            res = fused_color_head_resources(C, vf, Nh, n, bf16, red.device)
+            log(f"phase 12: the colour launch alone (fused_color_head) "
+                f"bf16={bf16} on K2's {red.shape[0]} rows: {t_h:.3f} ms vs "
+                f"plain {t_p:.3f} ms; {res['registers']} registers a "
+                f"thread, {res['smem_bytes']} B of shared memory a block, "
+                f"{res['blocks_per_sm']} block(s) of 256 threads an SM")
+        lib_ms, out = color_products_ms(red[:, :C], vd, color, vf)
+    log(f"phase 12: yardstick (library_ms of K4 and K5), cuBLAS's {n} "
+        f"colour products at the chunk's shape, bf16 in, {out} out: "
+        f"{lib_ms:.3f} ms")
+    lib = _cuda.build("fused_agg_color")
+    if _cuda.cuobjdump() is not None:
+        ops = ("HGMMA", "HMMA")
+        by_fn = _cuda.sass_counts(lib, ops).values()
+        counts = {op: sum(c[op] for c in by_fn) for op in ops}
+        log(f"phase 12: colour head SASS ({os.path.basename(lib)}): "
+            f"tensor-core instructions {counts}")
+        assert counts["HGMMA"] > 0, counts
+    else:
+        log("phase 12: colour head SASS: cuobjdump not found, not checked")
+    return lib_ms
 
 
 def phase12_k4_k6(paths):
@@ -1282,21 +1441,30 @@ def phase12_k4_k6(paths):
         M, rows = feat.shape[0], feat.shape[0] * feat.shape[1]
         weights = [t for l_ in block1 + alpha + color for t in l_.values()]
         out_bytes = M * 16 if key == "K4" else M // kwargs["SR"] * 16
-        # block1 on the tensor cores (K2's body), the colour head in f32;
-        # each mode's bound as K2's (phase 5), the main mode's recorded
+        t_k2 = k2_on_chunk_ms(args, kwargs)
+        # block1 (K2's launch) and the colour products on the tensor
+        # cores: bf16, or three tf32 passes (3xTF32); the alpha head and
+        # the K-sum in f32; each mode's bound, the main mode's recorded
         bounds = {}
         for bf16 in (True, False):
             flops, peaks, unit = block1_ops(block1, rows, bf16)
-            flops[1] += 2.0 * M * mlp_fma_per_row(color)
+            color_flops = 2.0 * M * mlp_fma_per_row(color) * (1 if bf16
+                                                                else 3)
+            flops[0] += color_flops
             bounds[bf16] = bound(
                 nbytes(*args[:-3], *weights) + out_bytes, flops, peaks)
             log(f"phase 12: {key} bf16={bf16} bound {bounds[bf16][0]:.3f} "
                 f"ms ({bounds[bf16][1]}: {flops[0] / 1e9:.0f} GFLOP on the "
-                f"{unit} cores + {flops[1] / 1e9:.1f} GFLOP in f32); kernel "
+                f"{unit} cores, of them {color_flops / 1e9:.1f} the colour "
+                f"head's, + {flops[1] / 1e9:.1f} GFLOP in f32); kernel "
                 f"{res[bf16][1]:.3f} ms = "
-                f"{bounds[bf16][0] / res[bf16][1]:.1%} of it")
+                f"{bounds[bf16][0] / res[bf16][1]:.1%} of it; {key} - K2 "
+                f"(K2 {t_k2[bf16]:.3f} ms on the same chunk) = "
+                f"{res[bf16][1] - t_k2[bf16]:.3f} ms")
         bound_ms, bound_by = bounds[bool(kwargs["bf16"])]
         log(f"phase 12: {key} reruns bit-identical")
+        if key == "K4":   # K5 runs the same colour products: one yardstick
+            library_ms = phase12_color_head_alone(args, kwargs)
         records[key] = {
             "name": entry, "route": "cuda",
             "source": "sgnerf_tpu_torch/csrc/fused_agg_color.cu",
@@ -1304,7 +1472,7 @@ def phase12_k4_k6(paths):
                          else "sgnerf_tpu/ops/fused_agg.py:267"),
             "launches": launches[entry], "max_abs_err": err, "ms": t_k,
             "plain_ms": t_p, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+            "library_ms": library_ms}
 
     (args, kwargs), launches = paths["K6"]
     with torch.inference_mode():

@@ -47,16 +47,9 @@ def build_other(csrc: str) -> tuple:
     src = os.path.join(csrc, "fused_knn.cu")
     with open(src, "rb") as f:
         digest = hashlib.sha1(f.read()).hexdigest()[:12]
-    out_dir = os.path.join(os.path.dirname(_cuda.BUILD_DIR), "probe_knn",
-                           digest)
-    os.makedirs(out_dir, exist_ok=True)
-    lib = os.path.join(out_dir, "libfused_knn.so")
-    res = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", lib, src],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src}:\n{res.stdout}"
-                           f"{res.stderr}")
-    return lib, res.stdout + res.stderr, src
+    lib, log = _cuda.build_at(src, os.path.join(
+        os.path.dirname(_cuda.BUILD_DIR), "probe_knn", digest))
+    return lib, log, src
 
 
 def ptxas_report(text: str) -> dict:

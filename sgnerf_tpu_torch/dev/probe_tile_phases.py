@@ -30,7 +30,6 @@ import json
 import os
 import re
 import statistics
-import subprocess
 
 import torch
 
@@ -106,11 +105,7 @@ def build_probe(csrc: str, label: str) -> str:
     src = os.path.join(out, "probe.cu")
     with open(src, "w") as f:
         f.write(k2)
-    so = os.path.join(out, "libprobe.so")
-    subprocess.run([_cuda._nvcc()] + _cuda.NVCC_FLAGS + ["-I", out, "-o", so,
-                                                         src],
-                   check=True, capture_output=True, text=True)
-    return so
+    return _cuda.build_at(src, out)[0]
 
 
 def _inputs(dev, M=221_184, K=8, F=32, Dd=6, C=256):

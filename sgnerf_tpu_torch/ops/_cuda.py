@@ -10,6 +10,7 @@ intrinsics lose accuracy.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -50,22 +51,18 @@ _SIGNATURES = {
         "fused_block1_alpha_smem": [_I, _I, _I, _I, _I, _I],
     },
     "fused_agg_color": {
-        # feat, d, w, vd, W, b, n_layers, wa, ba, CW, CB, n_clayers, Nh, M,
-        # K, F, nf, Dd, df, C, vf, bf16, out, stream
-        "fused_block1_alpha_color": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
-                                     _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                     _I, _I, _P, _P],
-        # feat, d, w, vd, ray_dist, ray_valid, W, b, n_layers, wa, ba, CW,
-        # CB, n_clayers, Nh, M, K, F, nf, Dd, df, C, vf, SR, bf16, out,
-        # stream
-        "fused_block1_alpha_color_march": [_P, _P, _P, _P, _P, _P, _P, _P,
-                                           _I, _P, _P, _P, _P, _I, _I, _I,
-                                           _I, _I, _I, _I, _I, _I, _I, _I,
-                                           _I, _P, _P],
+        # red, vd, W, b, n_layers, Nh, M, C, vf, ray_dist, ray_valid, SR
+        # (0: K4), bf16, out, hid (null: none), stream
+        "fused_color_head": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I,
+                             _I, _P, _P, _P],
         # K, F, nf, Dd, df, C, vf, n_clayers, Nh, SR (0: K4), bf16 ->
-        # shared memory bytes a block, 0: too big
+        # shared memory bytes of the head's block, 0: K2's or its too big
         "fused_block1_alpha_color_smem": [_I, _I, _I, _I, _I, _I, _I, _I,
                                           _I, _I, _I],
+        # C, vf, n_layers, Nh, bf16 -> shared memory bytes, 0: too big
+        "fused_color_head_smem": [_I, _I, _I, _I, _I],
+        # C, vf, n_layers, Nh, bf16, *regs, *smem_bytes, *blocks_per_sm
+        "fused_color_head_occupancy": [_I, _I, _I, _I, _I, _P, _P, _P],
     },
     "fused_agg_bwd": {
         # feat, d, W, b, n_layers, wa, ba, N, F, nf, Dd, df, C, bf16, x,
@@ -170,14 +167,48 @@ def build(name: str) -> str:
 def load(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is None:
-        lib = ctypes.CDLL(build(name))
-        lib.sgnerf_error_string.argtypes = [ctypes.c_int]
-        lib.sgnerf_error_string.restype = ctypes.c_char_p
-        for fn, argtypes in _SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        _libs[name] = lib
+        lib = _libs[name] = open_library(build(name), name)
     return lib
+
+
+def open_library(so: str, name: str) -> ctypes.CDLL:
+    """A built library of csrc/<name>.cu's C interface, its entry points
+    typed."""
+    lib = ctypes.CDLL(so)
+    lib.sgnerf_error_string.argtypes = [ctypes.c_int]
+    lib.sgnerf_error_string.restype = ctypes.c_char_p
+    for fn, argtypes in _SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def build_at(src: str, out_dir: str, flags=()) -> tuple:
+    """Compile a source outside the kernels' build (a probe's: an earlier
+    commit's kernel, or one built with extra defines in `flags`) as
+    `build` compiles the kernels, into out_dir -> (library path, nvcc's
+    output, which holds ptxas's resource report)."""
+    os.makedirs(out_dir, exist_ok=True)
+    stem = os.path.splitext(os.path.basename(src))[0]
+    so = os.path.join(out_dir, f"lib{stem}.so")
+    res = subprocess.run([_nvcc(), *NVCC_FLAGS, *flags, "-o", so, src],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src}:\n{res.stdout}"
+                           f"{res.stderr}")
+    return so, res.stdout + res.stderr
+
+
+@contextlib.contextmanager
+def using(name: str, lib: ctypes.CDLL):
+    """The wrappers of csrc/<name>.cu call `lib` (a probe's build of
+    another source) inside the block, this package's library after it."""
+    this = load(name)
+    _libs[name] = lib
+    try:
+        yield
+    finally:
+        _libs[name] = this
 
 
 def build_all() -> float:

@@ -23,11 +23,15 @@ and has no gradient.
 
 The kernels compute PE in the reference's interleaved layout against the
 unpermuted block1 weights; the TPU kernels' frequency-major layout with
-permuted W1 rows was a lane-layout device of that chip. K2, K4 and K5 run
-block1's products on the tensor cores (bf16, or 3xTF32 in f32 mode) from
-weights `pack_block1` lays out for their shared-memory ring (bf16
-k-slices, or tf32 hi/lo pairs; `tf32_rna` is the card's rounding), packed
-again only when the weights change.
+permuted W1 rows was a lane-layout device of that chip. K2 runs block1's
+products on the tensor cores (bf16, or 3xTF32 in f32 mode) from weights
+`pack_block1` lays out for its shared-memory ring (bf16 k-slices, or tf32
+hi/lo pairs; `tf32_rna` is the card's rounding), packed again only when
+the weights change. K4 and K5 are two launches: K2's kernel writes the
+reduced rows, then the colour head's kernel (`fused_color_head`, also
+callable alone) runs the colour MLP on the tensor cores from weights
+`pack_color` lays out the same way (`head_plan` its shapes) and, for K5,
+the march.
 
 Derivatives follow JAX's conventions, so CPU autograd, the kernels and
 the JAX package agree: leaky_relu' is 1 at exactly 0 (jnp.where(x >= 0)),
@@ -37,6 +41,7 @@ cotangent and operands to bf16 in the backward too, as the reference's
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, List
 
 import torch
@@ -365,17 +370,15 @@ def _check_block1(block1, in0, what, K=1, max_k=64, max_in=None):
     return C
 
 
-def _check_color(feat, vd, block1, color_branch, vf, extra=()):
-    """Shapes and types of K4/K5's extra inputs; returns their tensors and
-    the colour head's hidden width."""
-    M = feat.shape[0]
+def _check_color(M, vd, C, color_branch, vf, extra=()):
+    """Shapes and types of K4/K5's extra inputs (M points, feature width
+    C); returns their tensors and the colour head's hidden width."""
     if vd.dtype != torch.float32 or tuple(vd.shape) != (M, 3):
         raise ValueError(f"vd must be ({M}, 3) float32, got {vd.dtype} "
                          f"{tuple(vd.shape)}")
     if vf < 1:
         raise ValueError("the fused colour head needs PE'd view directions "
                          f"(vf >= 1), got vf={vf}")
-    C = block1[0]["w"].shape[1]
     shapes = [tuple(l_["w"].shape) for l_ in color_branch]
     n = len(shapes)
     Nh = shapes[0][1] if n > 1 else 3
@@ -400,6 +403,19 @@ WGMMA_N = 256
 TILE_ROWS = {True: 128, False: 64}   # rows of a tile: bf16, f32 mode
 K3_MAX_IN = WGMMA_N + 32             # K3b's dx: 256 columns, then 32
 K3C_SLAB = 2048                      # rows K3c sums into one partial
+# The colour head's kernel (csrc/fused_agg_color.cu): tiles of 128 points
+# (64 for an f32 head wider than 128), hidden layers padded to 64 columns,
+# the 3-logit layer to 8
+HEAD_TILE, HEAD_MAX_NH, HEAD_LAST_N = 128, 256, 8
+# The bf16 colour head's hidden values, the kernel's against the plain
+# head's (color_tail_on_roundings): the tensor cores' f32 sums round toward
+# zero (PERF.md F9), within 2 units of n 2^-24 sum_k |x_k w_k| (n exact
+# products) of the exact sum, cuBLAS's to nearest within 1 unit, so the two
+# lie FLIP_BOUND units apart at most (sum_error_units measures either on
+# the card). A flip is rare: at most FLIP_SHARE of a layer's values (1-2e-4
+# on an eval chunk), or FLIP_FLOOR of a small layer's
+FLIP_BOUND, FLIP_SHARE, FLIP_FLOOR = 3.0, 1e-3, 4
+
 
 def _smem_fits(device, fn, *dims) -> bool:
     """Whether a block of the kernel fits the card's shared memory at these
@@ -433,13 +449,14 @@ def k3_supports(*, K, F, Dd, nf, df, C, bf16, device=None):
 
 def k4_supports(*, K, F, Dd, nf, df, C, bf16, vf, Nh, n_clayers, SR=0,
                 device=None):
-    """The shapes K4 (or with SR > 0, K5) takes: K2's, K <= 32, a colour
-    head of n_clayers layers with 3 <= Nh <= C and vf <= 30, and, on a
-    CUDA `device`, its block within the card's shared memory."""
+    """The shapes K4 (or with SR > 0, K5) takes: K2's (K4 and K5 run K2's
+    kernel, then the colour head on its rows), a colour head of n_clayers
+    layers with 3 <= Nh <= 256 and 1 <= vf <= 30, and, on a CUDA `device`,
+    K2's block and the head's within the card's shared memory."""
     return (k2_supports(K=K, F=F, Dd=Dd, nf=nf, df=df, C=C, bf16=bf16,
                         device=device)
-            and K <= 32 and n_clayers >= 1 and 1 <= vf <= 30
-            and 3 <= Nh <= C
+            and n_clayers >= 1 and 1 <= vf <= 30
+            and (n_clayers == 1 or 3 <= Nh <= HEAD_MAX_NH)
             and _smem_fits(device, "fused_block1_alpha_color_smem", K, F,
                            nf, Dd, df, C, vf, n_clayers, Nh, SR, int(bf16)))
 
@@ -451,23 +468,28 @@ def tf32_rna(x: torch.Tensor) -> torch.Tensor:
     return ((b + 0x1000) & -0x2000).view(torch.float32)
 
 
-def pack_kslices(w: torch.Tensor, bf16: bool) -> torch.Tensor:
-    """One (k, n <= WGMMA_N) operand B of the tile body's products in its
-    layout, flat: the rows padded with zero rows to a multiple of
-    SLICE_DEPTH[bf16], the columns with zeros to WGMMA_N, cut into
-    k-slices of 16-byte planes (bf16, or tf32 hi planes then lo planes)."""
+def pack_kslices(w: torch.Tensor, bf16: bool, width: int = WGMMA_N,
+                 depth: int = None) -> torch.Tensor:
+    """One (k, n <= width) operand B of the tile body's (or the colour
+    head's) products in its layout, flat: the rows padded with zero rows to
+    `depth` (default: a multiple of SLICE_DEPTH[bf16]), the columns with
+    zeros to `width`, cut into k-slices of 16-byte planes (bf16, or tf32
+    hi planes then lo planes)."""
     ks = SLICE_DEPTH[bf16]
     w = w.detach().to(torch.float32)
     k, n = w.shape
-    kp = -(-k // ks) * ks
-    wp = w.new_zeros(kp, WGMMA_N)
+    kp = -(-k // ks) * ks if depth is None else depth
+    if kp % ks or kp < k or n > width:
+        raise ValueError(f"cannot pack ({k}, {n}) into depth {kp}, width "
+                         f"{width}")
+    wp = w.new_zeros(kp, width)
     wp[:k, :n] = w
-    ws = wp.reshape(kp // ks, ks, WGMMA_N)          # (S, ks, N)
+    ws = wp.reshape(kp // ks, ks, width)            # (S, ks, N)
     if bf16:
-        x = ws.reshape(-1, 4, 8, WGMMA_N).to(torch.bfloat16)
+        x = ws.reshape(-1, 4, 8, width).to(torch.bfloat16)
     else:
         hi = tf32_rna(ws)
-        x = torch.cat([hi, tf32_rna(ws - hi)], 1).reshape(-1, 4, 4, WGMMA_N)
+        x = torch.cat([hi, tf32_rna(ws - hi)], 1).reshape(-1, 4, 4, width)
     return x.transpose(2, 3).reshape(-1)            # (S, plane, N, e)
 
 
@@ -499,15 +521,60 @@ def pack_block1_bwd(block1: List[Dict[str, torch.Tensor]], in0: int,
     return torch.cat([pack_kslices(m, bf16) for m in mats])
 
 
+def head_plan(C: int, vf: int, Nh: int, n_clayers: int, bf16: bool):
+    """The colour head kernel's shapes (csrc/fused_agg_color.cu
+    `head_plan`): kp0, layer 0's depth C + 6 vf padded to the slice depth;
+    Np, the hidden width padded to 64 columns (an f32 head wider than 128:
+    256, its tile split between the warpgroups by columns); rows, the
+    points a tile; the layers' padded (depth, width)."""
+    ks = SLICE_DEPTH[bf16]
+    kp0 = -(-(C + 6 * vf) // ks) * ks
+    Np = -(-Nh // 64) * 64 if n_clayers > 1 else 0
+    split = not bf16 and Np > 128
+    if split:
+        Np = HEAD_MAX_NH
+    dims = [(kp0 if l_ == 0 else Np,
+             HEAD_LAST_N if l_ == n_clayers - 1 else Np)
+            for l_ in range(n_clayers)]
+    return dict(kp0=kp0, Np=Np, split=split,
+                rows=HEAD_TILE // 2 if split else HEAD_TILE, dims=dims)
+
+
+def pack_color(color_branch: List[Dict[str, torch.Tensor]], vf: int,
+               bf16: bool):
+    """The colour head's weights in its kernel's layout for one mode, and
+    its biases: each layer by pack_kslices at its padded (depth, width)
+    from head_plan (zero rows and columns in the padding), concatenated;
+    the biases padded with zeros to each width -> (packed weights, bf16 or
+    float32 (tf32 hi/lo), flat; biases float32, flat). The first layer
+    takes C + 6 vf inputs."""
+    shapes = [tuple(l_["w"].shape) for l_ in color_branch]
+    n = len(shapes)
+    C = shapes[0][0] - 6 * vf
+    Nh = shapes[0][1] if n > 1 else 3
+    want = ([(C + 6 * vf, Nh)] + [(Nh, Nh)] * (n - 2) + [(Nh, 3)] if n > 1
+            else [(C + 6 * vf, 3)])
+    if shapes != want or (n > 1 and not 3 <= Nh <= HEAD_MAX_NH):
+        raise ValueError(f"color_branch must be {want}, got {shapes}")
+    plan = head_plan(C, vf, Nh, n, bf16)
+    packed = torch.cat([pack_kslices(l_["w"], bf16, width=wd, depth=dp)
+                        for l_, (dp, wd) in zip(color_branch, plan["dims"])])
+    bias = torch.cat([torch.nn.functional.pad(
+        l_["b"].detach().reshape(-1).to(torch.float32),
+        (0, wd - l_["b"].numel()))
+        for l_, (_, wd) in zip(color_branch, plan["dims"])])
+    return packed, bias.contiguous()
+
+
 _PACKED: dict = {}   # (kind, bf16) -> (weight tensors, versions, packed)
 
 
 def _packed(fn, block1, in0, bf16):
-    """fn(block1, in0, bf16) (pack_block1 or pack_block1_bwd), kept while
-    the same weight tensors hold the same values (the same objects at the
-    same version counts): the render calls K2 once a chunk with unchanged
-    weights; an optimizer step bumps the versions. Inference tensors keep
-    no version count and are packed every call."""
+    """fn(block1, in0, bf16) (pack_block1, pack_block1_bwd or pack_color),
+    kept while the same weight tensors hold the same values (the same
+    objects at the same version counts): the render calls K2 once a chunk
+    with unchanged weights; an optimizer step bumps the versions. Inference
+    tensors keep no version count and are packed every call."""
     ts = tuple(t for l_ in block1 for t in (l_["w"], l_["b"]))
     if any(t.is_inference() for t in ts):
         return fn(block1, in0, bf16)
@@ -547,7 +614,10 @@ def fused_block1_alpha_resources(F: int, nf: int, Dd: int, df: int, C: int,
                     (v.value for v in vals)))
 
 
-def _launch_fwd(feat, d, w, block1, alpha_branch, K, nf, df, bf16):
+def _launch_fwd(feat, d, w, block1, alpha_branch, K, nf, df, bf16,
+                count=True):
+    """K2's launch -> (M, C+1); counted under fused_block1_alpha unless it
+    is K4's or K5's first launch (count=False)."""
     ts = _check(feat, d, w, block1, alpha_branch, K)
     C, in0 = _check_cuda(ts, feat, d, block1, K, nf, df,
                          "fused_block1_alpha")
@@ -559,7 +629,7 @@ def _launch_fwd(feat, d, w, block1, alpha_branch, K, nf, df, bf16):
                          f"Dd={Dd} nf={nf} df={df} C={C} (k2_supports)")
     Wall, Ball = _packed_block1(block1, in0, bf16)
     wa, ba = _alpha_args(alpha_branch)
-    feat, d, w = feat.contiguous(), d.contiguous(), w.contiguous()
+    feat, d, w = (t.detach().contiguous() for t in (feat, d, w))
     out = torch.empty((M, C + 1), dtype=torch.float32, device=feat.device)
     lib = _cuda.load("fused_agg")
     with torch.cuda.device(feat.device):
@@ -568,21 +638,213 @@ def _launch_fwd(feat, d, w, block1, alpha_branch, K, nf, df, bf16):
             _cuda.ptr(Ball), len(block1), _cuda.ptr(wa), _cuda.ptr(ba),
             M, K, Fd, nf, Dd, df, C, int(bf16), _cuda.ptr(out),
             _cuda.stream_of(feat))
-    fused_block1_alpha.launches += 1
+    if count:
+        fused_block1_alpha.launches += 1
     _cuda.check(lib, err, "fused_block1_alpha")
     return out
 
 
+def color_head_plain(red, vd, color_branch, *, vf: int, bf16: bool,
+                     march=None):
+    """Plain colour-head launch: on K2's reduced rows red (M, C+1) =
+    [fa | alpha] and vd (M, 3) -> (M, 4) [alpha | raw colour logits]
+    (color_tail_plain), or with march = (ray_dist, ray_valid, SR) the
+    (M/SR, 4) [ray colour | background transmission] (march_tail_plain)."""
+    C = red.shape[-1] - 1
+    hc = color_tail_plain(red[:, :C], vd, color_branch, vf=vf, bf16=bf16)
+    if march is None:
+        return torch.cat([red[:, C:], hc], dim=-1)
+    ray_dist, ray_valid, SR = march
+    return march_tail_plain(red[:, C:], hc, ray_dist, ray_valid, SR=SR)
+
+
+def _launch_head(red, vd, color_branch, vf, bf16, march=None, hid=None):
+    """The colour head's launch on red (M, C+1) (K2's rows); hid, where
+    given, (n_clayers - 1, M, Np) f32 takes its hidden activations."""
+    M, C = red.shape[0], red.shape[1] - 1
+    n = len(color_branch)
+    Nh = color_branch[0]["w"].shape[1] if n > 1 else 3
+    Wc, Bc = _packed(pack_color, color_branch, vf, bf16)
+    red, vd = red.detach().contiguous(), vd.detach().contiguous()
+    SR, rd, rv = 0, None, None
+    if march is not None:
+        rd, rv, SR = march
+        rd, rv = rd.detach().contiguous(), rv.detach().contiguous()
+    out = torch.empty((M // SR if SR else M, 4), dtype=torch.float32,
+                      device=red.device)
+    lib = _cuda.load("fused_agg_color")
+    with torch.cuda.device(red.device):
+        err = lib.fused_color_head(
+            _cuda.ptr(red), _cuda.ptr(vd), _cuda.ptr(Wc), _cuda.ptr(Bc), n,
+            Nh, M, C, vf, None if rd is None else _cuda.ptr(rd),
+            None if rv is None else _cuda.ptr(rv), SR, int(bf16),
+            _cuda.ptr(out), None if hid is None else _cuda.ptr(hid),
+            _cuda.stream_of(red))
+    _cuda.check(lib, err, "fused_color_head")
+    return out
+
+
+def fused_color_head(red, vd, color_branch, *, vf: int, bf16: bool,
+                     march=None):
+    """The colour head's kernel alone, K4's and K5's second launch: red
+    (M, C+1) f32, K2's reduced rows, vd (M, 3) -> color_head_plain's
+    output, which it runs for CPU tensors. Eval only (no gradient).
+    `fused_color_head.launches` counts its launches made alone (K4's and
+    K5's count under their own names)."""
+    M = red.shape[0]
+    if red.dim() != 2 or red.dtype != torch.float32:
+        raise ValueError(f"red must be (M, C+1) float32, got {red.dtype} "
+                         f"{tuple(red.shape)}")
+    if march is not None:
+        SR = march[2]
+        if SR < 1 or M % SR:
+            raise ValueError(f"M = {M} must be a multiple of SR = {SR}")
+    C = red.shape[1] - 1
+    ts, Nh = _check_color(M, vd, C, color_branch, vf,
+                          () if march is None else march[:2])
+    if red.device.type == "cpu":
+        return color_head_plain(red, vd, color_branch, vf=vf, bf16=bf16,
+                                march=march)
+    if any(t.device != red.device for t in ts) or red.device.type != "cuda":
+        raise ValueError("fused_color_head: every tensor must lie on one "
+                         "CUDA device (or all on the CPU)")
+    n = len(color_branch)
+    if _cuda.load("fused_agg_color").fused_color_head_smem(
+            C, vf, n, Nh, int(bf16)) == 0:
+        raise ValueError(f"fused_color_head does not take C={C} vf={vf} "
+                         f"Nh={Nh} n_clayers={n} (k4_supports)")
+    out = _launch_head(red, vd, color_branch, vf, bf16, march)
+    fused_color_head.launches += 1
+    return out
+
+
+def color_head_hidden(red, vd, color_branch, *, vf: int, bf16: bool):
+    """The colour launch (CUDA tensors) with its hidden activations saved,
+    for checks (chip_smoke.py phase 12, the card tests); not counted. ->
+    (its (M, 4) output, (n_clayers - 1, M, Nh) the value of each hidden
+    layer as the next layer multiplies it: bf16 mode rounded)."""
+    M, C = red.shape[0], red.shape[1] - 1
+    _check_color(M, vd, C, color_branch, vf)
+    n = len(color_branch)
+    Nh = color_branch[0]["w"].shape[1] if n > 1 else 3
+    Np = head_plan(C, vf, Nh, n, bf16)["Np"]
+    hid = torch.zeros((max(n - 1, 0), M, Np), dtype=torch.float32,
+                      device=red.device)
+    out = _launch_head(red, vd, color_branch, vf, bf16, hid=hid)
+    return out, hid[..., :Nh]
+
+
+def _bf16_preimage(v: torch.Tensor):
+    """The f32 values that round (to nearest) to the bf16 values v: the
+    interval between the midpoints to v's bf16 neighbours -> (lo, hi)."""
+    bits = v.contiguous().view(torch.int32)
+    step = torch.where(v == 0, v.new_zeros(()).view(torch.int32) + 0x10000,
+                       bits + 0x10000).view(torch.float32)  # away from 0
+    back = torch.where(v == 0, -step,
+                       (bits - 0x10000).view(torch.float32))
+    a, b = (v + step) / 2, (v + back) / 2
+    return torch.minimum(a, b), torch.maximum(a, b)
+
+
+def _z_preimage(h: torch.Tensor):
+    """The pre-activations z whose LeakyReLU rounds (to nearest) to the bf16
+    values h -> (lo, hi)."""
+    return tuple(torch.where(t >= 0, t, t / 0.01) for t in _bf16_preimage(h))
+
+
+def color_tail_on_roundings(fa, vd, color_branch, hidden, *, vf: int,
+                            flip_bound: float = FLIP_BOUND):
+    """The plain bf16 colour head (color_tail_plain with bf16) that takes,
+    at each hidden layer, the kernel's bf16 value where its own rounding
+    differs (a flip): the kernel's f32 sums are the tensor cores', the
+    plain's cuBLAS's, and a value within their difference of a bf16
+    midpoint (or of LeakyReLU's kink at 0) rounds either way. hidden
+    (L-1, M, Nh): the kernel's (color_head_hidden). Distances count in
+    units of n 2^-24 sum_k |x_k w_k|, the f32 sum's error bound for n
+    terms. Raises ValueError unless every hidden value is a bf16 value, at
+    most FLIP_SHARE of a layer's values flip (FLIP_FLOOR of a small
+    layer's), and each flip's plain pre-activation z lies within flip_bound
+    units of the values (in z) that round to the kernel's. That distance is
+    also the check of adjacency: bf16 steps (in z) grow with |z| on each
+    side of LeakyReLU's kink, so where flip_bound units are less than the
+    steps of both values, a value between them would put z a step away,
+    and the kernel's value must be the plain one's neighbour; across the
+    kink, at zero, and where the sum cancels, the steps are finer than the
+    sums' error and the distance alone bounds the flip. -> (logits (M, 3),
+    flips a layer, the largest distance of a flip, in units)."""
+    if not torch.equal(_bf16(hidden), hidden):
+        raise ValueError("hidden values that are not bf16 values (or not "
+                         "finite): the kernel did not round them")
+    x = torch.cat([fa, positional_encoding(vd, vf, ori=True)[..., 3:]], -1)
+    flips, worst = [], 0.0
+    for i, (layer, hk) in enumerate(zip(color_branch[:-1], hidden)):
+        xr, wr = _bf16(x), _bf16(layer["w"])
+        z = xr @ wr + layer["b"]
+        h = leaky_relu(z)
+        hp = _bf16(h)
+        flip = hp != hk
+        flips.append(int(flip.sum()))
+        cap = max(math.ceil(FLIP_SHARE * flip.numel()), FLIP_FLOOR)
+        if flips[-1] > cap:
+            raise ValueError(f"hidden layer {i}: {flips[-1]} of "
+                             f"{flip.numel()} values flip (at most {cap})")
+        if flips[-1]:
+            lo, hi = _z_preimage(hk[flip])
+            zf = z[flip]
+            dist = torch.clamp(torch.maximum(lo - zf, zf - hi), min=0.0)
+            unit = (xr.abs() @ wr.abs())[flip] * xr.shape[-1] * 2.0 ** -24
+            far = float((dist / unit).max())
+            if far > flip_bound:
+                raise ValueError(f"hidden layer {i}: a flip {far:.3g} units "
+                                 f"from the plain sum (at most {flip_bound})")
+            worst = max(worst, far)
+        x = torch.where(flip, hk, h)
+    last = color_branch[-1]
+    return _bf16(x) @ _bf16(last["w"]) + last["b"], flips, worst
+
+
+def sum_error_units(got, x, w, b=None) -> float:
+    """The largest error of got, an f32 product x @ w (+ b) of bf16 values
+    (so that each product is exact in f32), against the same sums in
+    float64, in the units color_tail_on_roundings counts in: n 2^-24
+    sum_k |x_k w_k| for n = x's columns (a sum rounded to nearest stays
+    within 1, one rounded toward zero within 2; the bias's add adds at
+    most about 1/n)."""
+    x64, w64 = x.double(), w.double()
+    exact = x64 @ w64 + (0.0 if b is None else b.double())
+    err = (got.double() - exact).abs()
+    unit = (x64.abs() @ w64.abs()) * x.shape[-1] * 2.0 ** -24
+    return float(torch.where(err == 0, torch.zeros_like(err),
+                             err / unit).max())
+
+
+def fused_color_head_resources(C: int, vf: int, Nh: int, n_clayers: int,
+                               bf16: bool, device=None) -> Dict[str, int]:
+    """The colour head kernel's registers a thread, shared memory a block
+    (bytes) and resident blocks an SM on the card."""
+    import ctypes
+    lib = _cuda.load("fused_agg_color")
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(device):
+        err = lib.fused_color_head_occupancy(
+            C, vf, n_clayers, Nh, int(bf16), *(ctypes.byref(v) for v in vals))
+    _cuda.check(lib, err, "fused_color_head_occupancy")
+    return dict(zip(("registers", "smem_bytes", "blocks_per_sm"),
+                    (v.value for v in vals)))
+
+
 def _launch_color(feat, d, w, vd, block1, alpha_branch, color_branch, K, nf,
                   df, vf, bf16, march=None):
-    """K4, or K5 when `march` = (ray_dist, ray_valid, SR)."""
+    """K4, or K5 when `march` = (ray_dist, ray_valid, SR): K2's kernel
+    (not counted under fused_block1_alpha), then the colour head's on its
+    rows; one launch counted under K4's or K5's name."""
     what = ("fused_block1_alpha_color" if march is None
             else "fused_block1_alpha_color_march")
     ts = _check(feat, d, w, block1, alpha_branch, K)
-    cts, Nh = _check_color(feat, vd, block1, color_branch, vf,
+    cts, Nh = _check_color(feat.shape[0], vd, block1[0]["w"].shape[1],
+                           color_branch, vf,
                            () if march is None else march[:2])
-    C, in0 = _check_cuda(ts + cts, feat, d, block1, K, nf, df, what,
-                         max_k=32)
+    C, in0 = _check_cuda(ts + cts, feat, d, block1, K, nf, df, what)
     M, _, Fd = feat.shape
     Dd = d.shape[-1]
     if not k4_supports(K=K, F=Fd, Dd=Dd, nf=nf, df=df, C=C, bf16=bf16,
@@ -590,35 +852,14 @@ def _launch_color(feat, d, w, vd, block1, alpha_branch, color_branch, K, nf,
                        SR=0 if march is None else march[2],
                        device=feat.device):
         raise ValueError(f"{what} does not take K={K} C={C} Nh={Nh} vf={vf}"
-                         " here: its block exceeds shared memory "
-                         "(k4_supports)")
-    Wall, Ball = _packed_block1(block1, in0, bf16)
-    wa, ba = _alpha_args(alpha_branch)
-    CW = torch.cat([l_["w"].reshape(-1) for l_ in color_branch])
-    CB = torch.cat([l_["b"].reshape(-1) for l_ in color_branch])
-    feat, d, w, vd = (t.detach().contiguous() for t in (feat, d, w, vd))
-    lib = _cuda.load("fused_agg_color")
-    common = [_cuda.ptr(Wall), _cuda.ptr(Ball), len(block1), _cuda.ptr(wa),
-              _cuda.ptr(ba), _cuda.ptr(CW), _cuda.ptr(CB), len(color_branch),
-              Nh, M, K, Fd, nf, Dd, df, C, vf]
-    with torch.cuda.device(feat.device):
-        if march is None:
-            out = torch.empty((M, 4), dtype=torch.float32, device=feat.device)
-            err = lib.fused_block1_alpha_color(
-                _cuda.ptr(feat), _cuda.ptr(d), _cuda.ptr(w), _cuda.ptr(vd),
-                *common, int(bf16), _cuda.ptr(out), _cuda.stream_of(feat))
-            fused_block1_alpha_color.launches += 1
-        else:
-            ray_dist, ray_valid, SR = march
-            rd, rv = ray_dist.contiguous(), ray_valid.contiguous()
-            out = torch.empty((M // SR, 4), dtype=torch.float32,
-                              device=feat.device)
-            err = lib.fused_block1_alpha_color_march(
-                _cuda.ptr(feat), _cuda.ptr(d), _cuda.ptr(w), _cuda.ptr(vd),
-                _cuda.ptr(rd), _cuda.ptr(rv), *common, SR, int(bf16),
-                _cuda.ptr(out), _cuda.stream_of(feat))
-            fused_block1_alpha_color_march.launches += 1
-    _cuda.check(lib, err, what)
+                         " (k4_supports)")
+    red = _launch_fwd(feat, d, w, block1, alpha_branch, K, nf, df, bf16,
+                      count=False)
+    out = _launch_head(red, vd, color_branch, vf, bf16, march)
+    if march is None:
+        fused_block1_alpha_color.launches += 1
+    else:
+        fused_block1_alpha_color_march.launches += 1
     return out
 
 
@@ -882,7 +1123,8 @@ def fused_block1_alpha_color(feat, d, w, vd, block1, alpha_branch,
     (bwd="cuda") or the plain gradient (bwd="plain").
     `fused_block1_alpha_color.launches` counts kernel launches."""
     _check(feat, d, w, block1, alpha_branch, K)
-    _check_color(feat, vd, block1, color_branch, vf)
+    _check_color(feat.shape[0], vd, block1[0]["w"].shape[1], color_branch,
+                 vf)
     if feat.device.type == "cpu":
         return fused_block1_alpha_color_plain(
             feat, d, w, vd, block1, alpha_branch, color_branch, K=K, nf=nf,
@@ -911,7 +1153,8 @@ def fused_block1_alpha_color_march(feat, d, w, vd, ray_dist, ray_valid,
     if any(t.dtype != torch.float32 or tuple(t.shape) != (M,)
            for t in (ray_dist, ray_valid)):
         raise ValueError(f"ray_dist and ray_valid must be ({M},) float32")
-    _check_color(feat, vd, block1, color_branch, vf, (ray_dist, ray_valid))
+    _check_color(M, vd, block1[0]["w"].shape[1], color_branch, vf,
+                 (ray_dist, ray_valid))
     if feat.device.type == "cpu":
         return fused_block1_alpha_color_march_plain(
             feat, d, w, vd, ray_dist, ray_valid, block1, alpha_branch,
@@ -924,3 +1167,4 @@ fused_block1_alpha.launches = 0
 fused_block1_alpha_bwd.launches = 0
 fused_block1_alpha_color.launches = 0
 fused_block1_alpha_color_march.launches = 0
+fused_color_head.launches = 0

@@ -20,7 +20,9 @@ from sgnerf_tpu_torch.ops.fused_agg import (
     fused_block1_alpha, fused_block1_alpha_bwd, fused_block1_alpha_bwd_plain,
     fused_block1_alpha_color, fused_block1_alpha_color_march,
     fused_block1_alpha_color_march_plain, fused_block1_alpha_color_plain,
-    fused_block1_alpha_plain, color_tail_plain, k3a_recompute,
+    fused_block1_alpha_plain, color_head_hidden, color_head_plain,
+    color_tail_on_roundings, fused_color_head, fused_color_head_resources,
+    k3a_recompute, sum_error_units, _bf16,
     k3a_recompute_plain, k3b_data_grads, k3b_data_grads_plain,
     k3c_weight_grads, k3c_weight_grads_plain, k2_supports, k3_supports,
     k4_supports, march_tail_plain)
@@ -325,18 +327,35 @@ def test_wrappers_refuse_mixed_devices(dev):
 
 
 # bf16 mode, K4 vs the plain colour head on the K2 kernel's reduced rows
-# (K4 computes them with K2's tile body) and K5 vs the plain march on K4's
-# outputs (chip_smoke.py COLOR_SOUND_TOL): only the colour layers'
-# summation order (K4) and the march's exp (K5) are left. Each limit lies
-# below the kernel's bf16-vs-f32 gap, which K2_TOL[True] does not.
+# (K4's first launch is K2's kernel) and K5 vs the plain march on K4's
+# outputs (chip_smoke.py COLOR_SOUND_TOL): the plain head takes the
+# kernel's hidden bf16 roundings where the tensor cores' and cuBLAS's f32
+# sums put a midpoint (or LeakyReLU's kink) between them
+# (color_tail_on_roundings refuses unrounded hidden values, more flips than
+# FLIP_SHARE, and a flip past FLIP_BOUND units of the sums' error); then
+# only the last layer's summation order (K4) and the march's exp (K5) are
+# left. Each limit lies below the kernel's bf16-vs-f32 gap, which
+# K2_TOL[True] does not.
 COLOR_SOUND_TOL = {"K4": 2e-3, "K5": 1e-6}
 
 
+def _on_roundings(red, vd, color, vf=4):
+    """bf16: the colour launch on red (M, C+1) with its hidden values, and
+    the plain colour head taking its flipped roundings (every flip checked)
+    -> (the launch's (M, 4), the plain (M, 4) [alpha | logits])."""
+    C = red.shape[1] - 1
+    head, hid = color_head_hidden(red, vd, color, vf=vf, bf16=True)
+    logits, _, _ = color_tail_on_roundings(red[:, :C], vd, color, hid,
+                                           vf=vf)
+    return head, torch.cat([red[:, C:], logits], -1)
+
+
 def _on_k2_rows(feat, d, w, vd, block1, alpha, color, K):
-    """bf16 (alpha, colour logits): K2 kernel, then the plain colour head."""
+    """bf16: K2 kernel, then _on_roundings on its reduced rows -> (the
+    colour launch's (M, 4), the plain head's (M, 4))."""
     fa, al = fused_block1_alpha(feat, d, w, block1, alpha, K=K, nf=3, df=5,
                                 bf16=True)
-    return al, color_tail_plain(fa, vd, color, vf=4, bf16=True)
+    return _on_roundings(torch.cat([fa, al], -1), vd, color)
 
 
 def _assert_sound_bf16(key, got, ref, got_f32):
@@ -365,13 +384,23 @@ def _color_inputs(dev, M, K, C=256, vf=4, Nh=128, n_layers=4):
     return feat, d, w, vd, block1, alpha, color
 
 
+# (M, K, colour layers, hidden width): the canonical head, a 1-layer head,
+# heads of 8, 32 and 256 columns (256: f32 splits a 64-point tile by
+# columns), M ragged across a 128-point tile, K past 32 (K2's range)
+K4_SHAPES = [(501, 8, 4, 128), (77, 3, 1, 128), (129, 8, 2, 8),
+             (300, 4, 3, 32), (257, 8, 4, 256), (200, 2, 4, 128),
+             (150, 33, 2, 128)]
+
+
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("M,K,n_layers", [(501, 8, 4), (77, 3, 1)])
-def test_k4_kernel_matches_plain(dev, bf16, M, K, n_layers):
-    args = _color_inputs(dev, M, K, n_layers=n_layers)
-    n0 = fused_block1_alpha_color.launches
+@pytest.mark.parametrize("M,K,n_layers,Nh", K4_SHAPES)
+def test_k4_kernel_matches_plain(dev, bf16, M, K, n_layers, Nh):
+    args = _color_inputs(dev, M, K, Nh=Nh, n_layers=n_layers)
+    n0 = (fused_block1_alpha_color.launches, fused_block1_alpha.launches)
     al, rc = fused_block1_alpha_color(*args, K=K, nf=3, df=5, vf=4, bf16=bf16)
-    assert fused_block1_alpha_color.launches == n0 + 1
+    # K2's launch inside K4 counts under K4 only
+    assert (fused_block1_alpha_color.launches,
+            fused_block1_alpha.launches) == (n0[0] + 1, n0[1])
     ral, rrc = fused_block1_alpha_color_plain(*args, K=K, nf=3, df=5, vf=4,
                                               bf16=bf16)
     torch.testing.assert_close(al, ral, **K2_TOL[bf16])
@@ -379,29 +408,39 @@ def test_k4_kernel_matches_plain(dev, bf16, M, K, n_layers):
     again = fused_block1_alpha_color(*args, K=K, nf=3, df=5, vf=4, bf16=bf16)
     assert torch.equal(al, again[0]) and torch.equal(rc, again[1])
     if bf16:
-        sal, src = _on_k2_rows(*args, K=K)
-        assert torch.equal(al, sal)       # K2's tile body, bit for bit
+        head, ref = _on_k2_rows(*args, K=K)
+        # K2's rows and the colour launch, bit for bit
+        assert torch.equal(torch.cat([al, rc], -1), head)
         f32 = fused_block1_alpha_color(*args, K=K, nf=3, df=5, vf=4,
                                        bf16=False)
-        _assert_sound_bf16("K4", torch.cat([al, rc], -1),
-                           torch.cat([sal, src], -1), torch.cat(f32, -1))
+        _assert_sound_bf16("K4", head, ref, torch.cat(f32, -1))
+
+
+# (SR, K, hidden width): several rays a tile (SR 1, 3, 5, 8, 24), a ray
+# longer than a tile (SR 200), and the f32 64-point tiles of a 256-wide
+# head (SR 100: two sub-tiles a ray there, one in bf16)
+K5_SHAPES = [(24, 8, 128), (5, 8, 128), (3, 8, 128), (8, 4, 128),
+             (1, 8, 128), (200, 4, 128), (100, 4, 256)]
 
 
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("SR,K", [(24, 8), (5, 8), (3, 8), (8, 4)])
-def test_k5_kernel_matches_plain(dev, bf16, SR, K):
-    """SR 24: three whole sub-tiles a ray; SR 5: one partial sub-tile; SR 3
-    and SR 8 with K 4: several rays a block."""
+@pytest.mark.parametrize("SR,K,Nh", K5_SHAPES)
+def test_k5_kernel_matches_plain(dev, bf16, SR, K, Nh):
+    """Whole rays a tile, the last tile partial (37 rays), and rays walked
+    across tiles carrying their transmission."""
     n_rays = 37
-    feat, d, w, vd, block1, alpha, color = _color_inputs(dev, n_rays * SR, K)
+    feat, d, w, vd, block1, alpha, color = _color_inputs(dev, n_rays * SR, K,
+                                                         Nh=Nh)
     g = torch.Generator().manual_seed(2)
     ray_dist = (torch.rand(n_rays * SR, generator=g) * 0.5 + 0.02).to(dev)
     ray_valid = (torch.rand(n_rays * SR, generator=g) < 0.8).float().to(dev)
     args = (feat, d, w, vd, ray_dist, ray_valid, block1, alpha, color)
-    n0 = fused_block1_alpha_color_march.launches
+    n0 = (fused_block1_alpha_color_march.launches,
+          fused_block1_alpha.launches)
     got = fused_block1_alpha_color_march(*args, K=K, nf=3, df=5, vf=4, SR=SR,
                                          bf16=bf16)
-    assert fused_block1_alpha_color_march.launches == n0 + 1
+    assert (fused_block1_alpha_color_march.launches,
+            fused_block1_alpha.launches) == (n0[0] + 1, n0[1])
     ref = fused_block1_alpha_color_march_plain(*args, K=K, nf=3, df=5, vf=4,
                                                SR=SR, bf16=bf16)
     assert got.shape == (n_rays, 4)
@@ -417,6 +456,94 @@ def test_k5_kernel_matches_plain(dev, bf16, SR, K):
                                              SR=SR, bf16=False)
         _assert_sound_bf16("K5", got, march_tail_plain(al, rc, ray_dist,
                                                        ray_valid, SR=SR), f32)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("M,n_layers,Nh,SR", [
+    (1000, 4, 128, 0), (131, 1, 3, 0), (200, 3, 256, 0), (64, 2, 8, 0),
+    (37 * 24, 4, 128, 24), (3 * 300, 2, 256, 300)])
+def test_color_head_kernel_matches_plain(dev, bf16, M, n_layers, Nh, SR):
+    """The colour launch alone against color_tail_plain (and, with SR,
+    march_tail_plain) on the same reduced rows: the alpha column copied
+    bit for bit; f32 within K2_TOL[False] (3xTF32 against IEEE f32
+    products), bf16 within COLOR_SOUND_TOL["K4"] of the plain head taking
+    its flipped hidden roundings (_on_roundings); the march within
+    COLOR_SOUND_TOL["K5"] of the plain march on the head's own logits;
+    reruns bit-identical."""
+    g = torch.Generator().manual_seed(M + Nh)
+    C, vf = 256, 4
+    red = torch.cat([torch.randn(M, C, generator=g) * 0.5,
+                     torch.rand(M, 1, generator=g) * 3], -1).to(dev)
+    vd = torch.randn(M, 3, generator=g)
+    vd = (vd / vd.norm(dim=-1, keepdim=True)).to(dev)
+    sizes = [C + 6 * vf] + [Nh] * (n_layers - 1) + [3]
+    color = [{"w": (torch.randn(i, o, generator=g) * (2.0 / (i + o)) ** 0.5
+                    ).to(dev),
+              "b": (torch.randn(o, generator=g) * 0.05).to(dev)}
+             for i, o in zip(sizes[:-1], sizes[1:])]
+    n0 = fused_color_head.launches
+    head = fused_color_head(red, vd, color, vf=vf, bf16=bf16)
+    assert fused_color_head.launches == n0 + 1
+    assert head.shape == (M, 4)
+    assert torch.equal(head[:, 0], red[:, C])
+    if bf16:
+        saved, ref = _on_roundings(red, vd, color, vf=vf)
+        assert torch.equal(saved, head)
+        torch.testing.assert_close(head, ref, atol=COLOR_SOUND_TOL["K4"],
+                                   rtol=0.0)
+    else:
+        torch.testing.assert_close(
+            head, color_head_plain(red, vd, color, vf=vf, bf16=False),
+            **K2_TOL[False])
+    assert torch.equal(head, fused_color_head(red, vd, color, vf=vf,
+                                              bf16=bf16))
+    if SR:
+        rd = (torch.rand(M, generator=g) * 0.5 + 0.02).to(dev)
+        rv = (torch.rand(M, generator=g) < 0.8).float().to(dev)
+        got = fused_color_head(red, vd, color, vf=vf, bf16=bf16,
+                               march=(rd, rv, SR))
+        assert got.shape == (M // SR, 4)
+        torch.testing.assert_close(
+            got, march_tail_plain(head[:, :1], head[:, 1:], rd, rv, SR=SR),
+            atol=COLOR_SOUND_TOL["K5"], rtol=0.0)
+
+
+@pytest.mark.parametrize("M,Nh", [(1000, 128), (300, 256), (517, 32)])
+def test_color_head_sums_within_their_error_bound(dev, M, Nh):
+    """FLIP_BOUND's basis, measured: the bf16 head's last layer, its saved
+    hidden values (bf16) times the bf16 logit weights summed on the tensor
+    cores, lies within 2 units of n 2^-24 sum |x w| of the float64 sums
+    (rounded toward zero), and cuBLAS's f32 sums of the same products
+    within 1 (to nearest)."""
+    g = torch.Generator().manual_seed(M)
+    C, vf = 256, 4
+    red = torch.cat([torch.randn(M, C, generator=g) * 0.5,
+                     torch.rand(M, 1, generator=g) * 3], -1).to(dev)
+    vd = torch.randn(M, 3, generator=g)
+    vd = (vd / vd.norm(dim=-1, keepdim=True)).to(dev)
+    sizes = [C + 6 * vf, Nh, Nh, 3]
+    color = [{"w": (torch.randn(i, o, generator=g) * (2.0 / (i + o)) ** 0.5
+                    ).to(dev),
+              "b": (torch.randn(o, generator=g) * 0.05).to(dev)}
+             for i, o in zip(sizes[:-1], sizes[1:])]
+    head, hid = color_head_hidden(red, vd, color, vf=vf, bf16=True)
+    x, w, b = hid[-1], _bf16(color[-1]["w"]), color[-1]["b"]
+    assert sum_error_units(head[:, 1:], x, w, b) <= 2.0
+    assert sum_error_units(x @ w + b, x, w, b) <= 1.0
+
+
+def test_color_head_resources(dev):
+    """The colour head's block at the canonical head: blocks of 256
+    threads within 227 KB, two an SM in bf16 (128 registers a thread,
+    half the SM's shared memory each), one in f32; one in bf16 at a head
+    256 wide."""
+    for bf16 in (False, True):
+        res = fused_color_head_resources(256, 4, 128, 4, bf16, dev)
+        assert res["blocks_per_sm"] == (2 if bf16 else 1), res
+        assert 0 < res["smem_bytes"] <= 232448, res
+        assert 0 < res["registers"] <= (128 if bf16 else 255), res
+    res = fused_color_head_resources(256, 4, 256, 4, True, dev)
+    assert res["blocks_per_sm"] == 1, res
 
 
 def _tiled_inputs(dev, nt, T, U, n_slots, C=64):
@@ -715,10 +842,9 @@ def test_k3_f32_meets_the_jax_gradient_tolerance(dev):
 @pytest.mark.parametrize("K", [1, 2, 33])
 def test_gate_runs_every_k_and_matches_the_unfused_path(dev, bf16, K):
     """F8: --fused_mlp with --fused_color on at K 1, 2 and 33. The gate
-    picks K4 where k4_supports (f32 K 2), else K2 with the plain colour
-    head (K4's block exceeds shared memory at K 1, and at K 2 in bf16; K4
-    takes K <= 32); forward and backward run and match the un-fused path
-    (K2's and K3's tolerances)."""
+    picks K4 at each (K4 runs K2's kernel, then the colour head on its
+    rows: K2's range, K <= 64); forward and backward run and match the
+    un-fused path (K2's and K3's tolerances)."""
     from sgnerf_tpu_torch.models.aggregator import (AggregatorConfig,
                                                     init_aggregator_params)
     cfg = AggregatorConfig(compute_dtype="bfloat16" if bf16 else "float32")
@@ -727,7 +853,7 @@ def test_gate_runs_every_k_and_matches_the_unfused_path(dev, bf16, K):
     p = init_aggregator_params(0, cfg, device=dev)
     k4 = k4_supports(K=K, F=32, Dd=6, nf=3, df=5, C=256, bf16=bf16, vf=4,
                      Nh=128, n_clayers=4, device=dev)
-    assert k4 == (K == 2 and not bf16)
+    assert k4
     n = (fused_block1_alpha_color.launches, fused_block1_alpha.launches,
          fused_block1_alpha_bwd.launches)
     dec, got = _agg_grads(p, fused, kw)
@@ -743,15 +869,19 @@ def test_gate_runs_every_k_and_matches_the_unfused_path(dev, bf16, K):
 
 @pytest.mark.parametrize("bf16", [False, True])
 def test_k4_block_fits_at_the_canonical_widths(dev, bf16):
-    """The library's shared-memory query, as the gate asks it: K4's block
-    fits from K 3 in bf16 and from K 2 in f32 (64-row tiles halve the
-    colour head's scratch), K5's at SR 24 and K 8; K2's and K3's at every
-    K the gate sends them."""
+    """The library's shared-memory query, as the gate asks it: K4 and K5
+    are K2's launch and then the colour head's, so they take every K that
+    K2 takes (1-64) at the canonical widths, K5 at SR 24; the head's block
+    fits at every hidden width to 256; K2's and K3's at every K the gate
+    sends them."""
     canon = dict(F=32, Dd=6, nf=3, df=5, C=256, bf16=bf16, device=dev)
     head = dict(vf=4, Nh=128, n_clayers=4)
-    fits = [K for K in range(1, 40) if k4_supports(K=K, **canon, **head)]
-    assert fits == list(range(3 if bf16 else 2, 33))
+    fits = [K for K in range(1, 70) if k4_supports(K=K, **canon, **head)]
+    assert fits == list(range(1, 65))
     assert k4_supports(K=8, SR=24, **canon, **head)
+    for Nh in (3, 8, 32, 129, 256):
+        assert k4_supports(K=8, **canon, **dict(head, Nh=Nh))
+    assert not k4_supports(K=8, **canon, **dict(head, Nh=257))
     for K in (1, 2, 8, 33, 64):
         assert k2_supports(K=K, **canon) and k3_supports(K=K, **canon)
 

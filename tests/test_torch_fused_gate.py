@@ -4,7 +4,8 @@
 
 The reference's predicate picks the fused path for any K and width; the
 port's kernels take a range of shapes (K2: C % 32 == 0, C <= 256, K <= 64;
-K3: a block1 input of at most 288 columns; K4/K5: K <= 32; each a block
+K3: a block1 input of at most 288 columns; K4/K5: K2's launch, then the
+colour head's, with vf <= 30 and a hidden width <= 256; each a block
 within the card's shared memory, which the CUDA library reports and the
 gate asks on a CUDA device only). Outside a kernel's range the gate steps down:
 K5 to K4 to K2 with the plain colour head, K2 to the un-fused path, and a
@@ -48,7 +49,10 @@ def _paths(flags, training=False, march=False, device="cpu"):
     ([], "block1"),                                   # K 8
     (["--fused_color", "on"], "color"),
     (["--K", "2", "--fused_color", "on"], "color"),
-    (["--K", "33", "--fused_color", "on"], "block1"),  # K4 takes K <= 32
+    (["--K", "33", "--fused_color", "on"], "color"),  # K4 takes K2's K
+    (["--K", "64", "--fused_color", "on"], "color"),
+    (["--num_viewdir_freqs", "31", "--fused_color", "on"],
+     "block1"),                                       # K4 takes vf <= 30
     (["--shading_feature_num", "320"], "none"),       # K2 takes C <= 256
     (["--K", "96"], "none"),                          # K2 takes K <= 64
     (["--fused_mlp", "none", "--fused_color", "on"], "none"),
@@ -79,12 +83,15 @@ def test_gate_keeps_the_variants_unfused(flags):
 
 
 def test_gate_steps_the_march_down():
-    """K5 runs eval renders where it fits; past K4's range the colour head
-    and the march leave the kernel."""
+    """K5 runs eval renders where it fits (every K that K2 takes); past
+    the colour head's range the colour head and the march leave the
+    kernel."""
     assert _paths(["--K", "8", "--fused_march", "on"], march=True) == "march"
     assert _paths(["--K", "8", "--fused_march", "on"]) == "block1"
     assert _paths(["--K", "33", "--fused_march", "on"],
-                  march=True) == "block1"
+                  march=True) == "march"
+    assert _paths(["--K", "8", "--num_viewdir_freqs", "31", "--fused_march",
+                   "on"], march=True) == "block1"
 
 
 def test_training_takes_the_unfused_path_where_k3_cannot_follow():
@@ -102,19 +109,28 @@ def test_training_takes_the_unfused_path_where_k3_cannot_follow():
 @pytest.mark.parametrize("bf16", [False, True])
 def test_predicates_at_the_canonical_widths(bf16):
     """K2 and K3 take every K the gate sends them at the canonical widths;
-    K4's shape clauses take K <= 32 (its shared memory is the card's
-    question: tests/test_torch_cuda.py)."""
+    K4's shape clauses take K2's K (1-64), hidden widths 3-256 and vf
+    1-30 (its shared memory is the card's question:
+    tests/test_torch_cuda.py)."""
     for K in (1, 2, 8, 33, 64):
         assert k2_supports(K=K, bf16=bf16, **CANON)
         assert k3_supports(K=K, bf16=bf16, **CANON)
     assert not k2_supports(K=65, bf16=bf16, **CANON)
     assert not k2_supports(K=8, bf16=bf16, **dict(CANON, C=320))
     head = dict(vf=4, Nh=128, n_clayers=4)
-    fits = [K for K in range(1, 40) if k4_supports(K=K, bf16=bf16, **CANON,
+    fits = [K for K in range(1, 70) if k4_supports(K=K, bf16=bf16, **CANON,
                                                    **head)]
-    assert fits == list(range(1, 33))
+    assert fits == list(range(1, 65))
     assert k4_supports(K=8, bf16=bf16, SR=24, **CANON, **head)
     assert not k4_supports(K=8, bf16=bf16, **CANON, **dict(head, Nh=2))
+    for Nh in (3, 8, 32, 256):
+        assert k4_supports(K=8, bf16=bf16, **CANON, **dict(head, Nh=Nh))
+    assert not k4_supports(K=8, bf16=bf16, **CANON, **dict(head, Nh=257))
+    assert k4_supports(K=8, bf16=bf16, **CANON, **dict(head, vf=30))
+    assert not k4_supports(K=8, bf16=bf16, **CANON, **dict(head, vf=31))
+    # a 1-layer head has no hidden width: its Nh is the 3 logits
+    assert k4_supports(K=8, bf16=bf16, **CANON,
+                       **dict(head, n_clayers=1, Nh=3))
 
 
 class _Lib:
