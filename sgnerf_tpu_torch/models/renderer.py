@@ -35,6 +35,11 @@ the sample of largest opacity: its opacity and position, the distance to
 its nearest neighbour, and the neighbours' colour, direction, confidence
 and embedding averaged with weight * conf_coefficient.
 
+While a profiler records, `render_rays` and `render_rays_perspective`
+record the spans `sgnerf.query` (ray samples and neighbour query) and
+`sgnerf.shade` (table, gather, aggregation, march); `gather_and_aggregate`
+counts the shading layer's slots (utils/spans.py).
+
 `--attr_dedup` is served by the plain row gather. The reference's
 `dedup_tile_gather` is a TPU one-hot-matmul way to gather each tile's
 distinct rows once; below its cap it returns exactly the rows of the plain
@@ -58,6 +63,7 @@ from ..ops.quant import (dequantize_rows, quantize_table_int8,
                          stochastic_round_bf16)
 from ..ops.query_pers import perspective_grid, query_perspective_grid
 from ..ops.raygen import LAZY_RAYGENS, find_ray_generation_method
+from ..utils import spans
 from .aggregator import AggregatorConfig, aggregate
 from .point_cloud import NeuralPointCloud
 
@@ -457,30 +463,32 @@ def render_rays(params: Dict, cloud: NeuralPointCloud, grid: PointGrid,
                                   grid=grid, guidance=use_sem,
                                   table_shape=table_shape_of(cloud, cfg))
     noise = noise or {}
-    raypos, ray_ts = ray_samples(cfg, campos, raydir, near, far, noise,
-                                  is_train)
-    # with the two-level compaction on, positions are recomputed from
-    # (campos, dir, t) for the selected samples only, where the generator's
-    # positions are campos + t * dir
-    lazy = cfg.which_ray_generation in LAZY_RAYGENS
-    q = query_neighbors(grid, raypos, K=cfg.K,
-                        SR=cfg.SR, radius_limit=cfg.radius_limit,
-                        knn_mode=cfg.knn_mode,
-                        campos=campos if lazy else None,
-                        raydir=raydir if lazy else None,
-                        tvals=ray_ts if lazy else None,
-                        dedup_tile=cfg.dedup_tile,
-                        dedup_cap=cfg.dedup_cap,
-                        ray_label=pixel_label if use_sem else None,
-                        points_label=cloud.label if use_sem else None,
-                        points_label_prob=(cloud.label_prob if use_sem
-                                           else None),
-                        guide_u=noise.get("guide_u"))
-    if table is None:
-        table = step_table(cloud, cfg, noise, is_train)
-    return _shade_and_march(params, cloud, cfg, table, q.sample_pidx,
-                            q.sample_loc_w, q.ray_mask, campos, raydir,
-                            camrotc2w, bg_color, is_train, prob)
+    with spans.span("sgnerf.query", raydir.device):
+        raypos, ray_ts = ray_samples(cfg, campos, raydir, near, far, noise,
+                                      is_train)
+        # with the two-level compaction on, positions are recomputed from
+        # (campos, dir, t) for the selected samples only, where the
+        # generator's positions are campos + t * dir
+        lazy = cfg.which_ray_generation in LAZY_RAYGENS
+        q = query_neighbors(grid, raypos, K=cfg.K,
+                            SR=cfg.SR, radius_limit=cfg.radius_limit,
+                            knn_mode=cfg.knn_mode,
+                            campos=campos if lazy else None,
+                            raydir=raydir if lazy else None,
+                            tvals=ray_ts if lazy else None,
+                            dedup_tile=cfg.dedup_tile,
+                            dedup_cap=cfg.dedup_cap,
+                            ray_label=pixel_label if use_sem else None,
+                            points_label=cloud.label if use_sem else None,
+                            points_label_prob=(cloud.label_prob if use_sem
+                                               else None),
+                            guide_u=noise.get("guide_u"))
+    with spans.span("sgnerf.shade", raydir.device):
+        if table is None:
+            table = step_table(cloud, cfg, noise, is_train)
+        return _shade_and_march(params, cloud, cfg, table, q.sample_pidx,
+                                q.sample_loc_w, q.ray_mask, campos, raydir,
+                                camrotc2w, bg_color, is_train, prob)
 
 
 def render_rays_perspective(params: Dict, cloud: NeuralPointCloud, pspec,
@@ -507,33 +515,36 @@ def render_rays_perspective(params: Dict, cloud: NeuralPointCloud, pspec,
                                   perspective=True,
                                   table_shape=table_shape_of(cloud, cfg))
     noise = noise or {}
-    raypos, _ = ray_samples(cfg, campos, raydir, near, far, noise, is_train)
-    if pgrid is None:
-        pgrid, _ = perspective_grid(cloud.xyz, cloud.active, camrotc2w[0],
-                                    campos[0], pspec)
-    res = query_perspective_grid(pgrid, raypos, camrotc2w[0], campos[0],
-                                 K=cfg.K, SR=cfg.SR,
-                                 radius_limit=cfg.radius_limit)
-    loc_p = res.sample_loc_w              # perspective shading coords
-    shade_u = noise.get("shade_u")
-    if is_train and shade_u is not None and cfg.shpnt_jitter in (
-            "uniform", "gaussian"):
-        vz = pspec.vsize[2]
-        j = ((shade_u - 0.5) * vz if cfg.shpnt_jitter == "uniform"
-             else torch.clamp(shade_u * (vz / 4), -vz / 2, vz / 2))
-        j = torch.where(res.sample_loc_mask, j, torch.zeros_like(j))
-        loc_p = torch.cat([loc_p[..., :2], loc_p[..., 2:] + j[..., None]],
-                          dim=-1)
-    # lifted back to world coords for the shared shading path
-    loc_w = pers2w(loc_p.reshape(-1, 3), camrotc2w[0],
-                   campos[0]).reshape(loc_p.shape)
-    loc_w = torch.where(res.sample_loc_mask[..., None], loc_w,
-                        torch.zeros_like(loc_w))
-    if table is None:
-        table = step_table(cloud, cfg, noise, is_train)
-    return _shade_and_march(params, cloud, cfg, table, res.sample_pidx,
-                            loc_w, res.ray_mask, campos, raydir, camrotc2w,
-                            bg_color, is_train)
+    with spans.span("sgnerf.query", raydir.device):
+        raypos, _ = ray_samples(cfg, campos, raydir, near, far, noise,
+                                is_train)
+        if pgrid is None:
+            pgrid, _ = perspective_grid(cloud.xyz, cloud.active,
+                                        camrotc2w[0], campos[0], pspec)
+        res = query_perspective_grid(pgrid, raypos, camrotc2w[0],
+                                     campos[0], K=cfg.K, SR=cfg.SR,
+                                     radius_limit=cfg.radius_limit)
+        loc_p = res.sample_loc_w              # perspective shading coords
+        shade_u = noise.get("shade_u")
+        if is_train and shade_u is not None and cfg.shpnt_jitter in (
+                "uniform", "gaussian"):
+            vz = pspec.vsize[2]
+            j = ((shade_u - 0.5) * vz if cfg.shpnt_jitter == "uniform"
+                 else torch.clamp(shade_u * (vz / 4), -vz / 2, vz / 2))
+            j = torch.where(res.sample_loc_mask, j, torch.zeros_like(j))
+            loc_p = torch.cat([loc_p[..., :2],
+                               loc_p[..., 2:] + j[..., None]], dim=-1)
+        # lifted back to world coords for the shared shading path
+        loc_w = pers2w(loc_p.reshape(-1, 3), camrotc2w[0],
+                       campos[0]).reshape(loc_p.shape)
+        loc_w = torch.where(res.sample_loc_mask[..., None], loc_w,
+                            torch.zeros_like(loc_w))
+    with spans.span("sgnerf.shade", raydir.device):
+        if table is None:
+            table = step_table(cloud, cfg, noise, is_train)
+        return _shade_and_march(params, cloud, cfg, table, res.sample_pidx,
+                                loc_w, res.ray_mask, campos, raydir,
+                                camrotc2w, bg_color, is_train)
 
 
 def gather_and_aggregate(params, cloud, cfg: RenderConfig, table, sample_pidx,
@@ -549,6 +560,7 @@ def gather_and_aggregate(params, cloud, cfg: RenderConfig, table, sample_pidx,
     B, R, _ = raydir.shape
     agg = cfg.agg
     mask = sample_pidx >= 0
+    spans.count_slots(mask)
     pid = sample_pidx.clamp(0, cloud.capacity - 1).long()
     overflow = None
     if cfg.gather_dtype == "int8" and is_train:

@@ -20,7 +20,9 @@ times -lr(n - 1).
 
 The step updates the state in place (the JAX step donates it): parameters
 and point tensors are rewritten under no_grad, so the tensors a caller
-holds stay the live ones.
+holds stay the live ones. While a profiler records, a step records the
+span `sgnerf.step` and its stages `.forward`, `.loss`, `.backward` and
+`.update` (utils/spans.py).
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import spans
 from .losses import compute_losses
 from .point_cloud import NeuralPointCloud
 from .renderer import RenderConfig, render_rays, render_rays_perspective
@@ -221,26 +224,31 @@ def loss_and_grads(state: TrainState, grid, cfg: RenderConfig,
     pts = [getattr(cloud, f) for f in fields]
     for t in leaves + pts:
         t.requires_grad_(True)
+    dev = batch["raydir"].device
     try:
         cam = dict(campos=batch["campos"], raydir=batch["raydir"],
                    camrotc2w=batch["camrotc2w"], near=batch["near"],
                    far=batch["far"], bg_color=batch.get("bg_color"),
                    noise=noise, generator=generator, is_train=True)
-        if ray_mesh is not None:
-            from ..parallel.sharded import render_rays_sharded
-            out = render_rays_sharded(
-                params, cloud, grid, cfg, ray_mesh, pspec=pspec,
-                pixel_label=(None if pspec is not None
-                             else batch.get("pixel_label")), **cam)
-        elif pspec is not None:
-            # --wcoord_query 0: no semantic guidance, as the reference
-            # added it to the world-coordinate querier only
-            out = render_rays_perspective(params, cloud, pspec, cfg, **cam)
-        else:
-            out = render_rays(params, cloud, grid, cfg,
-                              pixel_label=batch.get("pixel_label"), **cam)
-        total, losses = step_losses(out, batch, tcfg)
-        grads = grads_of(total, leaves + pts)
+        with spans.span("sgnerf.step.forward", dev):
+            if ray_mesh is not None:
+                from ..parallel.sharded import render_rays_sharded
+                out = render_rays_sharded(
+                    params, cloud, grid, cfg, ray_mesh, pspec=pspec,
+                    pixel_label=(None if pspec is not None
+                                 else batch.get("pixel_label")), **cam)
+            elif pspec is not None:
+                # --wcoord_query 0: no semantic guidance, as the reference
+                # added it to the world-coordinate querier only
+                out = render_rays_perspective(params, cloud, pspec, cfg,
+                                              **cam)
+            else:
+                out = render_rays(params, cloud, grid, cfg,
+                                  pixel_label=batch.get("pixel_label"), **cam)
+        with spans.span("sgnerf.step.loss", dev):
+            total, losses = step_losses(out, batch, tcfg)
+        with spans.span("sgnerf.step.backward", dev):
+            grads = grads_of(total, leaves + pts)
     finally:
         for t in leaves + pts:
             t.requires_grad_(False)
@@ -263,18 +271,22 @@ def train_step(state: TrainState, grid, cfg: RenderConfig, tcfg: TrainConfig,
     `bg_ray` (B,R,3), --bgmodel plane's per-ray background, replaces
     bg_color through the background transmission. Returns
     (state, losses): detached 0-d tensors, not synchronised."""
-    losses, g_net, g_pts = loss_and_grads(state, grid, cfg, tcfg, batch,
-                                          noise=noise, generator=generator,
-                                          pspec=pspec, ray_mesh=ray_mesh)
-    net_scale, pts_scale = phase_scales(tcfg, state.step)
-    adam_step(param_leaves(state.params), g_net, state.opt_net,
-              schedule(tcfg, tcfg.lr, state.opt_net["count"]), net_scale)
-    fields = trained_fields(tcfg)
-    if fields:
-        adam_step([getattr(state.cloud, f) for f in fields], g_pts,
-                  state.opt_pts,
-                  schedule(tcfg, tcfg.plr, state.opt_pts["count"]),
-                  pts_scale)
+    dev = batch["raydir"].device
+    with spans.step(dev):
+        losses, g_net, g_pts = loss_and_grads(
+            state, grid, cfg, tcfg, batch, noise=noise, generator=generator,
+            pspec=pspec, ray_mesh=ray_mesh)
+        with spans.span("sgnerf.step.update", dev):
+            net_scale, pts_scale = phase_scales(tcfg, state.step)
+            adam_step(param_leaves(state.params), g_net, state.opt_net,
+                      schedule(tcfg, tcfg.lr, state.opt_net["count"]),
+                      net_scale)
+            fields = trained_fields(tcfg)
+            if fields:
+                adam_step([getattr(state.cloud, f) for f in fields], g_pts,
+                          state.opt_pts,
+                          schedule(tcfg, tcfg.plr, state.opt_pts["count"]),
+                          pts_scale)
     state.step += 1
     return state, losses
 

@@ -25,7 +25,8 @@ Counterpart of run/train_ft.py (reference run/train_ft.py):
      tests;
   4. final save, reference `.pth` export and test.
 `--profile_dir` writes a torch.profiler trace of steps [profile_start,
-profile_start + profile_steps).
+profile_start + profile_steps), the `sgnerf.step.*` spans in it, and
+prints the spans' summary of those steps (utils/spans.py).
 """
 from __future__ import annotations
 
@@ -45,6 +46,7 @@ from ..options.options import TrainOptions, configs_from_opt
 from ..runtime.growing import probe_and_grow
 from ..runtime.scene_model import SceneModel, batch_to_device
 from ..runtime.semantic import SemanticDriver
+from ..utils import spans
 from ..utils.metrics import psnr
 from ..utils.visualizer import Visualizer
 
@@ -219,6 +221,7 @@ def main(args=None):
                 if model.device.type == "cuda":
                     acts.append(torch.profiler.ProfilerActivity.CUDA)
                 profiler = torch.profiler.profile(activities=acts)
+                spans.reset()
                 profiler.start()
             items = [get_item() for _ in range(G)]
             model.ensure_pspec(items[0])     # --wcoord_query 0's frustum
@@ -241,6 +244,7 @@ def main(args=None):
                 profiler.export_chrome_trace(path)
                 profiler = None
                 print(f"profiler trace written to {path}")
+                print(spans.table())
 
             if total_steps % opt.print_freq == 0:
                 visualizer.print_losses(total_steps)

@@ -68,6 +68,7 @@ from ..ops.query_pers import perspective_grid, perspective_spec_from_camera
 from ..options.options import (configs_from_opt, device_from_opt,
                                shard_counts, shard_devices)
 from ..parallel.mesh import ShardGroup
+from ..utils import spans
 from .native import nearest_view, vox_downsample_closest
 
 
@@ -567,35 +568,43 @@ class SceneModel:
         replaces the constant one through each ray's background
         transmission: colour + bgT * (bg_image - bg_color). Under
         --ray_shards each chunk's rays are split over the shards; under
-        --scene_shards each chunk renders over the slabs."""
+        --scene_shards each chunk renders over the slabs. While a
+        profiler records, the frame records the span `sgnerf.frame` with
+        its upload, chunks and readback (utils/spans.py)."""
         dev = self.device
-        self.ensure_pspec(item)
-        raydir = torch.as_tensor(np.asarray(item["raydir"], np.float32),
-                                 device=dev)
-        R = raydir.shape[0]
-        pad = (-R) % chunk_rays
-        if pad:
-            raydir = torch.cat([raydir, raydir.new_zeros((pad, 3))])
-        campos = torch.as_tensor(np.asarray(item["campos"], np.float32),
-                                 device=dev)[None]
-        rot = torch.as_tensor(np.asarray(item["camrotc2w"], np.float32),
-                              device=dev)[None]
-        bg = torch.as_tensor(np.asarray(item["bg_color"], np.float32),
-                             device=dev)
-        near, far = float(item["near"]), float(item["far"])
-        render = self._chunk_renderer(campos, rot, near, far, bg)
-        cols, bgts = [], []
-        for s in range(0, raydir.shape[0], chunk_rays):
-            out = render(raydir[None, s:s + chunk_rays])
-            cols.append(out["coarse_raycolor"][0])
-            bgts.append(out["coarse_is_background"][0])
-        col = torch.cat(cols)[:R]
-        if bg_image is not None:
-            bgt = torch.cat(bgts)[:R]
-            col = col + bgt * (torch.tensor(
-                np.asarray(bg_image, np.float32), device=dev).reshape(-1, 3)
-                - bg)
-        return col.cpu().numpy()
+        with spans.frame(dev):
+            self.ensure_pspec(item)
+            with spans.span("sgnerf.frame.upload", dev):
+                raydir = torch.as_tensor(
+                    np.asarray(item["raydir"], np.float32), device=dev)
+                R = raydir.shape[0]
+                pad = (-R) % chunk_rays
+                if pad:
+                    raydir = torch.cat([raydir, raydir.new_zeros((pad, 3))])
+                campos = torch.as_tensor(
+                    np.asarray(item["campos"], np.float32), device=dev)[None]
+                rot = torch.as_tensor(
+                    np.asarray(item["camrotc2w"], np.float32),
+                    device=dev)[None]
+                bg = torch.as_tensor(np.asarray(item["bg_color"], np.float32),
+                                     device=dev)
+            near, far = float(item["near"]), float(item["far"])
+            render = self._chunk_renderer(campos, rot, near, far, bg)
+            cols, bgts = [], []
+            for s in range(0, raydir.shape[0], chunk_rays):
+                out = render(raydir[None, s:s + chunk_rays])
+                cols.append(out["coarse_raycolor"][0])
+                bgts.append(out["coarse_is_background"][0])
+            with spans.span("sgnerf.frame.readback", dev):
+                col = torch.cat(cols)[:R]
+                if bg_image is not None:
+                    bgt = torch.cat(bgts)[:R]
+                    col = col + bgt * (torch.tensor(
+                        np.asarray(bg_image, np.float32),
+                        device=dev).reshape(-1, 3) - bg)
+                col = col.cpu().numpy()
+                spans.settle()
+        return col
 
     def _chunk_renderer(self, campos, rot, near, far, bg):
         """A frame's chunk render, raydir (1,Rc,3) -> render output, for the

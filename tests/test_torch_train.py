@@ -9,6 +9,7 @@ in different orders; so do the two packages). Losses and Adam alone are
 elementwise: rtol 1e-6.
 """
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -424,7 +425,14 @@ def test_train_ft_cli_runs_and_writes_checkpoints(scans, tmp_path):
     for f in ("2_net_ray_marching.npz", "4_net_ray_marching.npz",
               "4_net_ray_marching.pth", "4_states.pth"):
         assert (d / f).exists(), f
-    assert (tmp_path / "prof" / "train_ft_2.json").exists()
+    trace = tmp_path / "prof" / "train_ft_2.json"
+    names = {e.get("name") for e in json.loads(trace.read_text())[
+        "traceEvents"]}
+    assert {"sgnerf.step", "sgnerf.step.forward", "sgnerf.step.loss",
+            "sgnerf.step.backward", "sgnerf.step.update", "sgnerf.query",
+            "sgnerf.shade"} <= names
+    # the spans' summary of the profiled step
+    assert "spans: 0 frames, 1 steps" in out and "shade.found" in out
 
 
 @pytest.mark.parametrize("flags", [["--scene_shards", "2"],
