@@ -451,6 +451,14 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def k2_input_bytes(feat, d, w):
+    """The bytes K2 reads of its row inputs: the live rows' (w != 0)
+    features and distances, and every slot's w (its plan reads them all)."""
+    live = int((w != 0).sum())
+    return (live * (feat.shape[-1] * feat.element_size()
+                    + d.shape[-1] * d.element_size()) + nbytes(w))
+
+
 def mlp_fma_per_row(block1):
     """FMAs of one neighbour row through block1 (one product per layer)."""
     return sum(l_["w"].shape[0] * l_["w"].shape[1] for l_ in block1)
@@ -946,20 +954,23 @@ def phase5_k2(captured, launches):
     main_bf16 = bool(kwargs["bf16"])
     err, t_k, t_p, _ = errs[main_bf16]
     feat, d, w, block1, alpha = args
-    rows = feat.shape[0] * feat.shape[1]
+    rows = int((w != 0).sum())    # K2 shades the live rows alone
     C = block1[0]["w"].shape[1]
     weights = [t for l_ in block1 + alpha for t in l_.values()]
-    in_bytes = nbytes(feat, d, w, *weights) + feat.shape[0] * (C + 1) * 4
+    in_bytes = (k2_input_bytes(feat, d, w) + nbytes(*weights)
+                + feat.shape[0] * (C + 1) * 4)
     bounds = {}
     for bf16 in (True, False):
         flops, peaks, unit = block1_ops(block1, rows, bf16)
         bounds[bf16] = bound(in_bytes, flops, peaks)
         log(f"phase 5: K2 bf16={bf16} bound {bounds[bf16][0]:.3f} ms "
             f"({bounds[bf16][1]}: {flops[0] / 1e9:.0f} GFLOP on the {unit} "
-            f"cores at {peaks[0] / 1e12:.0f} TFLOP/s + the f32 head); "
+            f"cores at {peaks[0] / 1e12:.0f} TFLOP/s + the f32 head, over "
+            f"the {rows} live of {w.numel()} rows); "
             f"kernel {errs[bf16][1]:.3f} ms = "
             f"{bounds[bf16][0] / errs[bf16][1]:.1%} of it")
     bound_ms, bound_by = bounds[main_bf16]
+    phase5_k2_fill(args, kwargs)
     phase5_k2_yardsticks(args, kwargs)
     return {"name": "fused_block1_alpha", "route": "cuda",
             "source": "sgnerf_tpu_torch/csrc/fused_agg.cu",
@@ -967,6 +978,30 @@ def phase5_k2(captured, launches):
             "launches": launches["fused_block1_alpha"],
             "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def phase5_k2_fill(args, kwargs):
+    """Phase 5: K2 shades only the chunk's live rows (w != 0): its device
+    time in each mode on the captured chunk, whose fill it prints, and on
+    the same chunk with every slot live (w = 1 on the empty slots), with
+    the rows its tiles held in each (the counter k2.rows)."""
+    import torch
+    from sgnerf_tpu_torch.ops import _cuda
+    from sgnerf_tpu_torch.ops.fused_agg import fused_block1_alpha, k2_plan
+    feat, d, w, block1, alpha = args
+    kw = {k: v for k, v in kwargs.items() if k != "bwd"}
+    full = torch.where(w != 0, w, torch.ones_like(w))
+    with torch.inference_mode():
+        for name, ww in (("captured", w), ("every slot live", full)):
+            fill = float((ww != 0).float().mean())
+            for bf16 in (False, True):
+                (_, _, held), _ = k2_plan(ww, K=kw["K"], C=32, bf16=bf16)
+                t = _cuda.device_ms(lambda: fused_block1_alpha(
+                    feat, d, ww, block1, alpha, **dict(kw, bf16=bf16)),
+                    reps=10)
+                log(f"phase 5: K2 bf16={bf16} on the {name} chunk (fill "
+                    f"{fill:.4f}, tiles hold {held} of {ww.numel()} slots):"
+                    f" {t:.3f} ms device time")
 
 
 def phase5_k2_yardsticks(args, kwargs):
@@ -1438,7 +1473,8 @@ def phase12_k4_k6(paths):
         err, t_k, t_p, _ = res[bool(kwargs["bf16"])]
         feat = args[0]
         block1, alpha, color = args[-3:]
-        M, rows = feat.shape[0], feat.shape[0] * feat.shape[1]
+        # K2's launch shades the live rows alone, the colour head every point
+        M, rows = feat.shape[0], int((args[2] != 0).sum())
         weights = [t for l_ in block1 + alpha + color for t in l_.values()]
         out_bytes = M * 16 if key == "K4" else M // kwargs["SR"] * 16
         t_k2 = k2_on_chunk_ms(args, kwargs)
@@ -1452,7 +1488,8 @@ def phase12_k4_k6(paths):
                                                                 else 3)
             flops[0] += color_flops
             bounds[bf16] = bound(
-                nbytes(*args[:-3], *weights) + out_bytes, flops, peaks)
+                k2_input_bytes(*args[:3]) + nbytes(*args[3:-3], *weights)
+                + out_bytes, flops, peaks)
             log(f"phase 12: {key} bf16={bf16} bound {bounds[bf16][0]:.3f} "
                 f"ms ({bounds[bf16][1]}: {flops[0] / 1e9:.0f} GFLOP on the "
                 f"{unit} cores, of them {color_flops / 1e9:.1f} the colour "

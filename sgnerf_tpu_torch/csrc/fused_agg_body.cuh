@@ -1,7 +1,10 @@
 // The fused aggregator's tile body — PE -> block1 -> per-neighbour alpha ->
 // weighted K-reduction over a tile of neighbour rows — shared by K2
-// (fused_agg.cu) and by K4/K5 (fused_agg_color.cu), which run the colour
-// head (and the volume march) on the reduced rows it leaves behind.
+// (fused_agg.cu; K4/K5 run the colour head, and the volume march, on the
+// reduced rows it leaves behind) and by K3's recompute. K2's tile is a
+// tile of its plan: the live rows (w != 0) of whole shading points, read
+// through the plan's row list, each point's rows summed in k order; K3a's
+// is consecutive rows.
 //
 // Function, per neighbour row r (K rows per shading point):
 //   x_r   = [feat | PE(feat, nf) | PE(d, df)] in the reference's interleaved
@@ -30,13 +33,20 @@
 //
 // What bounds it on an H100: the products. A canonical row costs
 // (284 + 256) x 256 MACs against ~200 bytes of input; a 9216-ray eval
-// chunk is 4.9e11 FLOP, 0.50 ms on the bf16 tensor cores (989 TFLOP/s;
-// f32 mode: three tf32 passes at 495 TFLOP/s, 3.0 ms) and 0.14 ms of HBM
-// traffic. Second, L2: every tile streams all the packed weights (278 KB
-// in bf16, twice that as tf32 hi/lo), so bf16's 128-row tiles read 3.8 GB
-// per eval chunk from L2, half what 64-row tiles would (f32 mode takes
-// 64-row tiles for its accuracy: 15 GB). Third, the CUDA-core work around the products
-// (PE, epilogues, K-sum), which does not overlap them within a block.
+// chunk shaded in full is 4.9e11 FLOP, 0.50 ms on the bf16 tensor cores
+// (989 TFLOP/s; f32 mode: three tf32 passes at 495 TFLOP/s, 3.0 ms) and
+// 0.14 ms of HBM traffic; K2 shades only its live rows (18-28% of an eval
+// chunk's slots, in tiles 89% full in f32, 94.5% in bf16). Why the bits
+// do not move when a row changes tile or place: each wgmma output row is
+// a function of its own A row (PE, products, bias, LeakyReLU, the alpha
+// dot's fixed shuffle tree are all per row), and the K-sum adds a point's
+// rows in k order from +0, where a dead slot would have added +-0.
+// Second, L2: every tile streams all the packed weights (278 KB in bf16,
+// twice that as tf32 hi/lo), so bf16's 128-row tiles read 3.8 GB per fully
+// live eval chunk from L2, half what 64-row tiles would (f32 mode takes
+// 64-row tiles for its accuracy: 15 GB). Third, the CUDA-core work around
+// the products (PE, epilogues, K-sum), which does not overlap them within
+// a block.
 //
 // Design:
 // - 256 threads = two warpgroups by Hopper's wgmma (C < 256 multiplies
@@ -66,7 +76,19 @@
 //   layer follows, and writes the next A in place. The last layer forms
 //   the alpha head's dot from the registers (a fixed shuffle tree) and
 //   writes f32 h_r w_r to a staging area over the dead A and ring; the
-//   K-sum (k in order) reads the staging, so reruns give the same bits.
+//   K-sum (each point's rows in k order, a point's row of dst written when
+//   its last row is added) reads the staging, so reruns give the same bits.
+// - K2's rows arrive through its plan (TileRows): the tile's global rows
+//   are staged in a map of kRows + 1 ints past the body's shared memory
+//   (each thread reads its own row's w), read by the raw rows' copies
+//   (issued four at a time, their rows read first), then turned into each
+//   row's point for the K-sum, which walks the rows 8 at a time, their
+//   values loaded ahead of the adds, and writes a point's row at its last
+//   row, read from a bit a row that warp ballots set as the rows arrive:
+//   a point's id is read once, not a row's. (Reading each row's point
+//   doubled the tail at full fill; listing the tile's points by ballots
+//   and walking them cut that tail but cost 3-4% of K2 at an eval chunk's
+//   27%: more points, fewer rows.)
 #pragma once
 
 #include <cmath>
@@ -163,6 +185,17 @@ inline size_t body_smem_bytes(int F, int nf, int Dd, int df, int C,
   return kHeadBytes +
          body_layout(block1_in(F, nf, Dd, df), F + Dd + 2, C, bf16)
              .region_bytes;
+}
+
+// Ints of a K2 tile's map (TileRows::map): each row's global row, then
+// its point, and -1 past the live rows through row kRows; then a bit a
+// row, set on each point's last row.
+constexpr int kMapInts = kRows + 1 + kRows / 32;
+
+// Bytes of dynamic shared memory of a K2 block (fused_agg.cu): the body's,
+// then its tile's map.
+inline size_t k2_smem_bytes(int F, int nf, int Dd, int df, int C, bool bf16) {
+  return body_smem_bytes(F, nf, Dd, df, C, bf16) + kMapInts * sizeof(int);
 }
 
 __device__ __forceinline__ float leaky(float v) {
@@ -422,15 +455,30 @@ struct SaveArgs {
   float* raw = nullptr;
 };
 
-// Runs the body for the n_pts (<= tile_rows / K) shading points from m0 and
-// writes their reduced rows [feat_agg (C) | alpha_agg] to dst[t * ld_dst + c]
-// (global memory, or shared memory past the staging). Wp is the packed
+// A tile of K2's plan (fused_agg.cu): n <= tile_rows live rows (w != 0)
+// of whole shading points, in point order and each point's k in order;
+// `row` is the calling thread's tile row's global neighbour row m K + k
+// (thread i holds row i, i < n). map is kMapInts ints of shared memory
+// past the body's, where the body keeps each tile row's global row while
+// it loads, then its point m (-1 past the live rows), and each point's
+// last row as a bit.
+struct TileRows {
+  int n = 0;
+  int row = 0;
+  int* map = nullptr;
+};
+
+// Runs the body for one tile of K2's plan, `tile`, and writes each of its
+// points' reduced rows [feat_agg (C) | alpha_agg], the sum over the
+// point's live rows in k order, to dst[m * ld_dst + c]. Wp is the packed
 // block1 weights (`pack_block1`), Bias the layers' biases concatenated.
 // `ring_it` counts the slices the block's ring has carried (0 before the
 // first body, after ring_init). Every thread of the block calls it; it
 // returns with the block synchronised, after which the region is free.
-// With SAVE (K3's recompute) it writes x, h and raw through `save` and
-// stops after the last layer: no alpha, no K-sum, dst and wgt unused.
+// With SAVE (K3's recompute) the tile is instead the n_pts (<= tile_rows)
+// consecutive rows from m0 (K = 1); it writes x, h and raw through `save`
+// and stops after the last layer: no alpha, no K-sum, dst, wgt and tile
+// unused.
 template <bool BF16, bool SAVE = false>
 __device__ __forceinline__ void block1_alpha_tile(
     const float* __restrict__ feat, const float* __restrict__ dist,
@@ -438,7 +486,8 @@ __device__ __forceinline__ void block1_alpha_tile(
     const float* __restrict__ Bias, int n_layers,
     const float* __restrict__ wa, const float* __restrict__ ba, int K, int F,
     int nf, int Dd, int df, int C, int m0, int n_pts, unsigned char* smem,
-    uint32_t& ring_it, float* dst, int ld_dst, SaveArgs save = SaveArgs()) {
+    uint32_t& ring_it, float* dst, int ld_dst, SaveArgs save = SaveArgs(),
+    TileRows tile = TileRows()) {
   constexpr int kR = tile_rows(BF16);
   const int in0 = block1_in(F, nf, Dd, df);
   const BodyLayout L = body_layout(in0, F + Dd + 2, C, BF16);
@@ -485,25 +534,58 @@ __device__ __forceinline__ void block1_alpha_tile(
 
   // ---- 1. the tile's raw rows into shared memory (rows padded by a float
   // against bank conflicts), then their PE rows into A: zero rows past the
-  // end, zero padding columns
-  const int tm = kR / K;
-  const int nrows = tm * K;
-  const size_t r0 = static_cast<size_t>(m0) * K;  // first global row
-  const int rows_live = n_pts * K;
+  // end, zero padding columns. K2 reads its rows through the plan's list;
+  // K3a's are consecutive from r0.
+  const size_t r0 = static_cast<size_t>(m0) * K;  // K3a's first global row
+  const int rows_live = SAVE ? n_pts * K : tile.n;
+  float w_mine = 0.0f;  // K2: the thread's row's w, read ahead of the rows
+  if (!SAVE) {
+    if (tid < rows_live) {
+      tile.map[tid] = tile.row;
+      w_mine = wgt[tile.row];
+    }
+    __syncthreads();
+    // each point's last row, a bit a row (a word a warp), for the K-sum
+    const bool end = tid < rows_live && (tid + 1 == rows_live ||
+                                         tile.map[tid + 1] / K != tile.row / K);
+    const uint32_t bits = __ballot_sync(0xffffffffu, end);
+    if ((tid & 31) == 0 && tid < kRows) tile.map[kRows + 1 + (tid >> 5)] = bits;
+  }
+  auto grow = [&](int r) {  // tile row r's global row
+    return SAVE ? r0 + r : static_cast<size_t>(tile.map[r]);
+  };
   float* raw_f = reinterpret_cast<float*>(region + L.raw_off);  // rows x F+1
   float* raw_d = raw_f + kR * (F + 1);                          // rows x Dd+1
-  {
-    const float* gf = feat + r0 * F;
-    const float* gd = dist + r0 * Dd;
-    for (int i = tid; i < rows_live * F; i += kThreads)
-      cp_async4(raw_f + i + i / F, gf + i);
-    for (int i = tid; i < rows_live * Dd; i += kThreads)
-      cp_async4(raw_d + i + i / Dd, gd + i);
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-  }
-  if (!SAVE && tid < kR) w_row[tid] = tid < rows_live ? wgt[r0 + tid] : 0.0f;
+  // a row's n floats from src into dst (rows padded by a float), four
+  // copies a thread at a time: their rows are read before they are issued
+  auto stage = [&](float* dst, const float* src, int n) {
+    for (int i0 = tid; i0 < rows_live * n; i0 += 4 * kThreads) {
+      size_t g[4];
+      int r[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u * kThreads;
+        r[u] = i / n;
+        g[u] = i < rows_live * n ? grow(r[u]) : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u * kThreads;
+        if (i < rows_live * n)
+          cp_async4(dst + i + r[u], src + g[u] * n + (i - r[u] * n));
+      }
+    }
+  };
+  stage(raw_f, feat, F);
+  stage(raw_d, dist, Dd);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  if (!SAVE && tid < kR) w_row[tid] = w_mine;
   for (int c = tid; c < C; c += kThreads) wa_s[c] = wa[c];
   __syncthreads();
+  // the map's global rows are read: it keeps each row's point for the
+  // K-sum, -1 past the live rows (through row kR)
+  if (!SAVE && tid <= kR)
+    tile.map[tid] = tid < rows_live ? tile.map[tid] / K : -1;
   auto put = [&](int r, int j, float v) {
     if (BF16)  // 8-column chunks of kRows 16-byte rows
       *reinterpret_cast<__nv_bfloat16*>(region + (j >> 3) * (kRows * 16) +
@@ -726,27 +808,44 @@ __device__ __forceinline__ void block1_alpha_tile(
   }
 
   // ---- 3. per-neighbour alpha (f32 head): softplus of the dot
-  if (tid < nrows) {
+  if (tid < rows_live) {
     const float x = row_dot(tid) + ba[0] - 1.0f;
     const float alpha = fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));  // softplus
     alpha_w[tid] = alpha * w_row[tid];
   }
   __syncthreads();
 
-  // ---- 4. weighted sum over the K neighbour slots -> (n_pts, C+1): a
-  // thread a column (and the alpha column a thread a point), the points in
-  // turn, each point's k in order (the staging holds h_r w_r)
+  // ---- 4. weighted sum over each point's live rows -> its (C+1) row of
+  // dst: a thread a column, the rows in turn, each point's k in order from
+  // +0 (the staging holds h_r w_r), 8 rows' values loaded ahead of their
+  // adds and a point's row of dst written at its last row (the tile's
+  // last-row bits); the alpha column a thread a point, the thread of its
+  // first row. A slot with w = 0 would add +-0, which leaves every partial
+  // sum of a sum that starts at +0 as it is: the sums are those over all K
+  // slots, bit for bit.
+  const int* pt = tile.map;
+  const uint32_t* ends = reinterpret_cast<const uint32_t*>(pt + kRows + 1);
   for (int c = tid; c < C; c += kThreads) {
-    for (int p = 0; p < n_pts; ++p) {
-      float s = 0.0f;
-#pragma unroll 8
-      for (int k = 0; k < K; ++k) s += staging[(p * K + k) * L.lds + c];
-      dst[static_cast<size_t>(p) * ld_dst + c] = s;
+    float s = 0.0f;
+    for (int r0 = 0; r0 < rows_live; r0 += 8) {  // kR % 8 == 0: in the tile
+      float v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = staging[(r0 + j) * L.lds + c];
+      const uint32_t e = ends[r0 >> 5] >> (r0 & 31);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s += v[j];  // past the live rows: never written
+        if (e >> j & 1u) {  // the point's last row
+          dst[static_cast<size_t>(pt[r0 + j]) * ld_dst + c] = s;
+          s = 0.0f;
+        }
+      }
     }
   }
-  for (int p = tid; p < n_pts; p += kThreads) {
+  if (tid < rows_live && (tid == 0 || pt[tid - 1] != pt[tid])) {
+    const int p = pt[tid];
     float s = 0.0f;
-    for (int k = 0; k < K; ++k) s += alpha_w[p * K + k];
+    for (int r = tid; r < rows_live && pt[r] == p; ++r) s += alpha_w[r];
     dst[static_cast<size_t>(p) * ld_dst + C] = s;
   }
   __syncthreads();

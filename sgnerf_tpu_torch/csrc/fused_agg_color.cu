@@ -825,7 +825,7 @@ int fused_block1_alpha_color_smem(int K, int F, int nf, int Dd, int df,
                                   int SR, int bf16) {
   if (K < 1 || K > 64 || F < 1 || Dd < 1 || nf < 1 || nf > 30 || df < 1 ||
       df > 30 || SR < 0 ||
-      body_smem_bytes(F, nf, Dd, df, C, bf16 != 0) > kMaxSmem)
+      k2_smem_bytes(F, nf, Dd, df, C, bf16 != 0) > kMaxSmem)
     return 0;
   return static_cast<int>(head_smem(C, vf, n_clayers, Nh, bf16 != 0));
 }

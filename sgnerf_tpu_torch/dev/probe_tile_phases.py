@@ -13,10 +13,16 @@ median of REPS). `--other DIR` adds another copy of the kernel sources
 to the same run; the weights are packed by this package's `pack_block1`.
 
     python -m sgnerf_tpu_torch.dev.probe_tile_phases [--bf16] [--other DIR]
+        [--fill F]
+
+`--fill` (default 1) keeps a share F of the slots live: a point holds no
+neighbour or its first c slots, c uniform in 1..K.
 
 Prints one JSON object a source: K2's ms, the instrumented kernel's ms,
 the tiles and their rows, and the mean cycles a tile by phase and by
-warpgroup: `pe` (raw rows staged, PE rows written), `products` (every
+warpgroup (summed over the tiles each block ran, over the tiles run:
+K2 on its plan runs a persistent grid): `pe` (raw rows staged, PE rows
+written), `products` (every
 layer's k-slice loop, of which `ring_wait` waits for a slice's TMA copy,
 `ring_sync` is the block barrier that hands a stage back, `mma_wait` the
 wait for the previous slice's wgmmas), `epilogue` (bias, LeakyReLU, the
@@ -82,8 +88,9 @@ def instrument(body: str) -> str:
                 "  P[7] = clock64() - P_te;\n"
                 "  P[0] = clock64() - P_t0;\n"
                 "  if ((tid & 127) == 0) {\n"
-                "    long long* o = g_probe + (blockIdx.x * 2 + (tid >> 7)) * 8;\n"
-                "    for (int i = 0; i < 8; ++i) o[i] = P[i];\n"
+                "    long long* o = g_probe + (blockIdx.x * 2 + (tid >> 7)) * 9;\n"
+                "    for (int i = 0; i < 8; ++i) o[i] += P[i];\n"
+                "    o[8] += 1;\n"
                 "  }\n"
                 "}\n\n}  // namespace sgnerf_agg", body)
 
@@ -108,11 +115,16 @@ def build_probe(csrc: str, label: str) -> str:
     return _cuda.build_at(src, out)[0]
 
 
-def _inputs(dev, M=221_184, K=8, F=32, Dd=6, C=256):
+def _inputs(dev, fill, M=221_184, K=8, F=32, Dd=6, C=256):
     g = torch.Generator(device=dev).manual_seed(0)
     feat = torch.randn(M, K, F, device=dev, generator=g) * 0.2
     d = torch.randn(M, K, Dd, device=dev, generator=g) * 0.05
     w = torch.rand(M, K, device=dev, generator=g)
+    if fill < 1.0:
+        c = torch.randint(1, K + 1, (M,), device=dev, generator=g)
+        hit = torch.rand(M, device=dev, generator=g) < fill * K / ((K + 1) / 2)
+        w = w * ((torch.arange(K, device=dev)[None] < c[:, None])
+                 & hit[:, None])
     in0 = F + 2 * F * 3 + 2 * Dd * 5
     block1 = [{"w": torch.randn(i, C, device=dev, generator=g)
                * (2.0 / (i + C)) ** 0.5,
@@ -135,8 +147,8 @@ def _ms(fn):
     return statistics.median(ts)
 
 
-def probe(so: str, label: str, bf16: bool, dev) -> dict:
-    feat, d, w, block1, alpha = _inputs(dev)
+def probe(so: str, label: str, bf16: bool, dev, fill: float) -> dict:
+    feat, d, w, block1, alpha = _inputs(dev, fill)
     M, K, F = feat.shape
     Dd, C = d.shape[-1], block1[0]["w"].shape[1]
     in0 = block1[0]["w"].shape[0]
@@ -146,31 +158,41 @@ def probe(so: str, label: str, bf16: bool, dev) -> dict:
         tiled = "tile_rows(bool bf16)" in f.read()
     rows = 64 if tiled and not bf16 else 128   # f32 mode's 64-row tiles
     tiles = -(-M // (rows // K))
-    buf = torch.zeros(tiles * 2 * 8, dtype=torch.int64, device=dev)
+    buf = torch.zeros(tiles * 2 * 9, dtype=torch.int64, device=dev)
     lib = ctypes.CDLL(so)
     lib.probe_set(ctypes.c_void_p(buf.data_ptr()))
     out = torch.empty(M, C + 1, device=dev)
     P, I = ctypes.c_void_p, ctypes.c_int
+    plan, scratch = [], None   # K2 on its plan: its scratch, then out
+    if hasattr(lib, "fused_block1_alpha_plan_words"):
+        scratch = torch.empty(lib.fused_block1_alpha_plan_words(
+            M, K, int(bf16)), dtype=torch.int32, device=dev)
+        plan = [P(scratch.data_ptr())]
 
     def run():
         err = lib.fused_block1_alpha(
             P(feat.data_ptr()), P(d.data_ptr()), P(w.data_ptr()),
             P(Wp.data_ptr()), P(Bias.data_ptr()), I(len(block1)),
             P(wa.data_ptr()), P(ba.data_ptr()), I(M), I(K), I(F), I(3),
-            I(Dd), I(5), I(C), I(int(bf16)), P(out.data_ptr()),
+            I(Dd), I(5), I(C), I(int(bf16)), *plan, P(out.data_ptr()),
             P(torch.cuda.current_stream().cuda_stream))
         if err:
             raise RuntimeError(f"probe launch failed: {err}")
     run()
     torch.cuda.synchronize()
+    buf.zero_()
+    run()
+    torch.cuda.synchronize()
+    sums = buf.view(tiles, 2, 9).double().sum(0)
+    cyc = sums[:, :8] / sums[:, 8:]
+    ran = int(sums[0, 8])
     ref = torch.cat(fused_block1_alpha(feat, d, w, block1, alpha, K=K, nf=3,
                                        df=5, bf16=bf16), -1)
     t_probe = _ms(run)
     t_k2 = _ms(lambda: fused_block1_alpha(feat, d, w, block1, alpha, K=K,
                                           nf=3, df=5, bf16=bf16))
-    cyc = buf.view(tiles, 2, 8).double().mean(0)
-    return {"source": label, "bf16": bf16, "tile_rows": rows,
-            "tiles": tiles, "k2_ms": t_k2, "probe_ms": t_probe,
+    return {"source": label, "bf16": bf16, "fill": fill, "tile_rows": rows,
+            "tiles": ran, "k2_ms": t_k2, "probe_ms": t_probe,
             "probe_vs_package_max_abs_diff": float((out - ref).abs().max()),
             "cycles_a_tile": {f"wg{g}": dict(zip(FIELDS, cyc[g].tolist()))
                               for g in range(2)}}
@@ -181,6 +203,7 @@ def main():
     ap.add_argument("--bf16", action="store_true")
     ap.add_argument("--other", default=None,
                     help="another csrc directory to probe in the same run")
+    ap.add_argument("--fill", type=float, default=1.0)
     args = ap.parse_args()
     dev = torch.device("cuda")
     here = _cuda.CSRC
@@ -188,7 +211,8 @@ def main():
                                      else [])
     for label, csrc in srcs:
         so = build_probe(csrc, label.replace(" ", "_"))
-        print(json.dumps(probe(so, label, args.bf16, dev)), flush=True)
+        print(json.dumps(probe(so, label, args.bf16, dev, args.fill)),
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -41,9 +41,13 @@ _SIGNATURES = {
     },
     "fused_agg": {
         # feat, d, w, W, b, n_layers, wa, ba, M, K, F, nf, Dd, df, C, bf16,
-        # out, stream
+        # plan, out, stream
         "fused_block1_alpha": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
-                               _I, _I, _I, _I, _I, _P, _P],
+                               _I, _I, _I, _I, _I, _P, _P, _P],
+        # w, M, K, C, bf16, plan, out, stream
+        "fused_block1_alpha_plan": [_P, _I, _I, _I, _I, _P, _P, _P],
+        # M, K, bf16 -> int32 words of the plan, -1: shapes K2 refuses
+        "fused_block1_alpha_plan_words": [_I, _I, _I],
         # F, nf, Dd, df, C, bf16, *regs, *smem_bytes, *blocks_per_sm
         "fused_block1_alpha_occupancy": [_I, _I, _I, _I, _I, _I, _P, _P,
                                          _P],

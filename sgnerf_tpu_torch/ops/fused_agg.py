@@ -48,6 +48,7 @@ import torch
 
 from . import _cuda
 from .pe import positional_encoding
+from ..utils import spans
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -90,11 +91,9 @@ def matmul(x: torch.Tensor, w: torch.Tensor, bf16: bool) -> torch.Tensor:
     return _MatmulBF16.apply(x, w) if bf16 else x @ w
 
 
-def fused_block1_alpha_plain(feat, d, w, block1: List[Dict[str, torch.Tensor]],
-                             alpha_branch, *, K: int, nf: int, df: int,
-                             bf16: bool):
-    """Plain PyTorch K2: feat (M,K,F), d (M,K,Dd), w (M,K) ->
-    (feat_agg (M,C), alpha (M,1))."""
+def _block1_alpha_rows(feat, d, block1, alpha_branch, nf, df, bf16):
+    """Each neighbour row's block1 output h and alpha: feat (..., F), d
+    (..., Dd) -> (h (..., C), alpha (..., 1))."""
     x = torch.cat([feat, positional_encoding(feat, nf),
                    positional_encoding(d, df)], dim=-1)
     h = x
@@ -102,9 +101,89 @@ def fused_block1_alpha_plain(feat, d, w, block1: List[Dict[str, torch.Tensor]],
         h = leaky_relu(matmul(h, layer["w"], bf16) + layer["b"])
     wa, ba = alpha_branch[0]["w"], alpha_branch[0]["b"]
     alpha = softplus((h * wa[:, 0]).sum(-1, keepdim=True) + ba - 1.0)
+    return h, alpha
+
+
+def fused_block1_alpha_plain(feat, d, w, block1: List[Dict[str, torch.Tensor]],
+                             alpha_branch, *, K: int, nf: int, df: int,
+                             bf16: bool):
+    """Plain PyTorch K2: feat (M,K,F), d (M,K,Dd), w (M,K) ->
+    (feat_agg (M,C), alpha (M,1))."""
+    h, alpha = _block1_alpha_rows(feat, d, block1, alpha_branch, nf, df, bf16)
     z = torch.cat([h * w[..., None], alpha * w[..., None]], dim=-1).sum(1)
     C = h.shape[-1]
     return z[:, :C], z[:, C:]
+
+
+def k2_plan_plain(w: torch.Tensor, K: int, bf16: bool):
+    """K2's tile plan (csrc/fused_agg.cu's plan launches) in PyTorch, for
+    w (M, K) -> (rows, tile_row0, held).
+
+    rows: the live neighbour rows m K + k (w != 0), in point order and each
+    point's k in order; point m's take rows[o_m : o_m + c_m], o the
+    exclusive prefix of the counts c. With T = TILE_ROWS[bf16], Kmax the
+    largest count and g the counts' gcd (every offset is a multiple of g),
+    the stride S = g floor((T - Kmax + g) / g), at least T - K + 1; tile t
+    holds the points whose offset lies in [t S, (t + 1) S):
+    rows[tile_row0[t] : tile_row0[t + 1]], at most S - g + Kmax <= T rows,
+    each point whole. nt = ceil(len(rows) / S) tiles; a tile can be empty
+    (S < Kmax, or a last tile inside the last point). Every slot live: S =
+    K floor(T / K), the dense tiles of whole points. held: T x the tiles
+    that hold a row (the counter k2.rows). Points with no live row lie in
+    no tile."""
+    M = w.shape[0]
+    T = TILE_ROWS[bf16]
+    live = (w != 0).reshape(M, K)
+    rows = torch.nonzero(live.reshape(-1)).flatten()
+    cnt = live.sum(1)
+    total = rows.numel()
+    if total:
+        kmax = int(cnt.max())
+        g = math.gcd(*(int(c) for c in torch.unique(cnt)))
+        S = g * ((T - kmax + g) // g)
+    else:
+        S = T
+    starts = (torch.cumsum(cnt, 0) - cnt)[cnt > 0]
+    nt = -(-total // S)
+    first = torch.searchsorted(starts, torch.arange(nt) * S)
+    ends = torch.cat([starts, starts.new_tensor([total])])
+    tile_row0 = torch.cat([ends[first], ends.new_tensor([total])])
+    held = T * int((tile_row0[1:] > tile_row0[:-1]).sum())
+    return rows, tile_row0, held
+
+
+def fused_block1_alpha_packed_plain(feat, d, w, block1, alpha_branch, *,
+                                    K: int, nf: int, df: int, bf16: bool):
+    """Plain K2 as the kernel reduces: for each tile of k2_plan_plain, each
+    of its points' live rows' [h w | alpha w] summed in k order from +0,
+    no dead slot in the sum; a point with no live row reads zero. Equal to
+    fused_block1_alpha_plain (`torch.equal`) where every dead slot's term
+    is +-0 and no point's live terms sum to -0. The rows' h and alpha are
+    the plain's, computed over all M K rows: a CPU BLAS's bits for a row
+    depend on its place in the product. That the kernel's do not (a row
+    gives the same bits in any tile and place) is held on the card."""
+    M = feat.shape[0]
+    h, alpha = _block1_alpha_rows(feat, d, block1, alpha_branch, nf, df, bf16)
+    C = h.shape[-1]
+    rows, tile_row0, _ = k2_plan_plain(w, K, bf16)
+    terms = torch.cat([h.reshape(M * K, C)[rows],
+                       alpha.reshape(M * K, 1)[rows]], dim=-1)
+    terms = terms * w.reshape(M * K)[rows][:, None]
+    out = feat.new_zeros(M, C + 1)
+    for t in range(tile_row0.numel() - 1):
+        j0, j1 = int(tile_row0[t]), int(tile_row0[t + 1])
+        pts = rows[j0:j1] // K
+        if not pts.numel():
+            continue
+        owners, first, n = torch.unique_consecutive(
+            pts, return_inverse=True, return_counts=True)
+        rank = torch.arange(j1 - j0) - (torch.cumsum(n, 0) - n)[first]
+        acc = feat.new_zeros(owners.numel(), C + 1)
+        for j in range(int(n.max())):  # each point's j-th live row, k order
+            at = rank == j
+            acc[first[at]] += terms[j0:j1][at]
+        out[owners] = acc
+    return out[:, :C], out[:, C:]
 
 
 def _flat(layers):
@@ -632,16 +711,58 @@ def _launch_fwd(feat, d, w, block1, alpha_branch, K, nf, df, bf16,
     feat, d, w = (t.detach().contiguous() for t in (feat, d, w))
     out = torch.empty((M, C + 1), dtype=torch.float32, device=feat.device)
     lib = _cuda.load("fused_agg")
+    plan = _plan_buffer(lib, M, K, bf16, feat.device)
     with torch.cuda.device(feat.device):
         err = lib.fused_block1_alpha(
             _cuda.ptr(feat), _cuda.ptr(d), _cuda.ptr(w), _cuda.ptr(Wall),
             _cuda.ptr(Ball), len(block1), _cuda.ptr(wa), _cuda.ptr(ba),
-            M, K, Fd, nf, Dd, df, C, int(bf16), _cuda.ptr(out),
-            _cuda.stream_of(feat))
+            M, K, Fd, nf, Dd, df, C, int(bf16), _cuda.ptr(plan),
+            _cuda.ptr(out), _cuda.stream_of(feat))
     if count:
         fused_block1_alpha.launches += 1
     _cuda.check(lib, err, "fused_block1_alpha")
+    if M:
+        spans.count_k2_rows(plan)
     return out
+
+
+def _plan_buffer(lib, M, K, bf16, device):
+    """Scratch for K2's plan (`fused_block1_alpha_plan_words` int32
+    words); its word 1 is the rows K2's tiles held."""
+    words = lib.fused_block1_alpha_plan_words(M, K, int(bf16))
+    if words < 0:
+        raise ValueError(f"fused_block1_alpha does not take M={M} K={K}")
+    return torch.empty(words, dtype=torch.int32, device=device)
+
+
+def k2_plan(w: torch.Tensor, *, K: int, C: int, bf16: bool):
+    """K2's plan launches alone on w (M, K) f32 on the card (for checks)
+    -> (rows, tile_row0, held) as k2_plan_plain gives them, and out (M,
+    C+1) zero on the rows of points with no live row (NaN elsewhere)."""
+    M = w.shape[0]
+    lib = _cuda.load("fused_agg")
+    w = w.detach().contiguous()
+    plan = _plan_buffer(lib, M, K, bf16, w.device)
+    out = torch.full((M, C + 1), float("nan"), device=w.device)
+    with torch.cuda.device(w.device):
+        err = lib.fused_block1_alpha_plan(_cuda.ptr(w), M, K, C, int(bf16),
+                                          _cuda.ptr(plan), _cuda.ptr(out),
+                                          _cuda.stream_of(w))
+    _cuda.check(lib, err, "fused_block1_alpha_plan")
+    nt, held, total = (int(v) for v in plan[:3].tolist())
+    tiles, rows_at = _plan_layout(M, K, bf16, plan.numel())
+    tile_row0 = plan[tiles:tiles + nt + 1].long().cpu()
+    rows = plan[rows_at:rows_at + total].long().cpu()
+    return (rows, tile_row0, held), out
+
+
+def _plan_layout(M, K, bf16, words):
+    """Where tile_row0 and rows start in K2's plan (csrc/fused_agg.cu
+    PlanLayout), checked against its length in words."""
+    rows_at = 4 + -(-(M * K) // (TILE_ROWS[bf16] - K + 1)) + 1
+    if rows_at + M * K + -(-M // 4) + 2 * -(-M // 1024) != words:
+        raise RuntimeError("K2's plan layout differs from csrc/fused_agg.cu")
+    return 4, rows_at
 
 
 def color_head_plain(red, vd, color_branch, *, vf: int, bf16: bool,

@@ -33,11 +33,13 @@ The names, and the metric or tool that reads each:
   sgnerf.step.update        both Adams
   shade.rows              neighbour slots shaded (rays x SR x K, padding in)
   shade.found             the slots that hold a neighbour (one device sum)
+  k2.rows                 the rows K2's tiles held (its plan's count, padding
+                          in), a K2 launch
 
-The benchmark's `query_ms.eval`, `shade_ms.eval`, `frame_edge_ms.eval` and
-`shade_fill.eval` read the frames; `train_ft --profile_dir` prints
-`table()` for the steps it profiles. Spans stay in memory; `reset()`
-clears them.
+The benchmark's `query_ms.eval`, `shade_ms.eval`, `frame_edge_ms.eval`,
+`shade_fill.eval` and `k2_rows_share.eval` read the frames;
+`train_ft --profile_dir` prints `table()` for the steps it profiles.
+Spans stay in memory; `reset()` clears them.
 """
 from __future__ import annotations
 
@@ -191,6 +193,14 @@ def count_slots(found: torch.Tensor) -> None:
     if torch.autograd._profiler_enabled():
         _count("shade.rows", found.numel())
         _count("shade.found", found.sum())
+
+
+def count_k2_rows(plan: torch.Tensor) -> None:
+    """K2's counter of one launch, while spans are on: the rows its tiles
+    held, word 1 of its plan (ops/fused_agg.py), copied so that the plan's
+    memory goes back to the allocator."""
+    if torch.autograd._profiler_enabled():
+        _count("k2.rows", plan[1].clone())
 
 
 def settle() -> None:

@@ -21,6 +21,7 @@ from sgnerf_tpu_torch.ops.fused_agg import (
     fused_block1_alpha_color, fused_block1_alpha_color_march,
     fused_block1_alpha_color_march_plain, fused_block1_alpha_color_plain,
     fused_block1_alpha_plain, color_head_hidden, color_head_plain,
+    k2_plan, k2_plan_plain,
     color_tail_on_roundings, fused_color_head, fused_color_head_resources,
     k3a_recompute, sum_error_units, _bf16,
     k3a_recompute_plain, k3b_data_grads, k3b_data_grads_plain,
@@ -160,6 +161,99 @@ def test_k2_kernel_matches_plain(dev, bf16, M, K, C, n_layers, F, Dd):
     assert not fa[M // 2].any() and not al[M // 2].any()
     again = fused_block1_alpha(*args, K=K, nf=3, df=5, bf16=bf16)
     assert torch.equal(fa, again[0]) and torch.equal(al, again[1])
+
+
+def _k2_bits(dev, feat, d, w, block1, alpha, bf16):
+    """K2's output (M, C+1) as int32 bits."""
+    fa, al = fused_block1_alpha(feat, d, w, block1, alpha, K=w.shape[1],
+                                nf=3, df=5, bf16=bf16)
+    return torch.cat([fa, al], dim=-1).view(torch.int32)
+
+
+def _dead_zeros(w, dev, seed):
+    """w with its dead slots +0 or -0 (both dead: w != 0 is false)."""
+    neg = _masks(w.shape, dev, seed=seed, keep=0.5)
+    return torch.where(w != 0, w, torch.where(neg, -torch.zeros_like(w),
+                                              torch.zeros_like(w)))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_k2_plan_on_the_card_equals_the_plain_plan(dev, bf16):
+    """The plan's three launches give k2_plan_plain's rows, tiles and held
+    count, at K of 1, 8 and 64, fills of 0, 25% and 100% and across plan
+    blocks (1,024 points) and the scan's rounds (1,024 blocks), and write
+    zeros on exactly the rows of the points with no live row."""
+    g = torch.Generator().manual_seed(3)
+    cases = [(M, K, f) for M, K in ((1, 1), (301, 1), (1001, 8), (77, 64),
+                                    (5000, 8)) for f in (0.0, 0.25, 1.0)]
+    for M, K, fill in cases + [(1_100_000, 1, 0.25)]:
+        w = torch.rand(M, K, generator=g) * (torch.rand(M, K, generator=g)
+                                             < fill)
+        (rows, tile_row0, held), out = k2_plan(w.to(dev), K=K, C=32,
+                                               bf16=bf16)
+        ref = k2_plan_plain(w, K, bf16)
+        assert torch.equal(rows, ref[0]) and torch.equal(tile_row0, ref[1])
+        assert held == ref[2], (M, K, fill)
+        empty = ~(w != 0).any(1)
+        out = out.cpu()
+        assert not out[empty].any() and torch.isnan(out[~empty]).all()
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_k2_never_reads_a_dead_row(dev, bf16):
+    """Rows with w = +0 or -0 are never read: features and distances so
+    large on them that block1 overflows there (the parent kernel's w x h
+    then reads NaN) leave K2's output the same bits, finite."""
+    feat, d, w, block1, alpha = _agg_inputs(dev, M=501, K=8)
+    w = _dead_zeros(w * _masks(w.shape, dev, seed=5, keep=0.25), dev, 6)
+    dead = (w == 0)[..., None]
+    big = torch.where(_masks(feat.shape, dev, seed=7), 3e38, -3e38)
+    feat2 = torch.where(dead, big, feat)
+    d2 = torch.where(dead, big[..., :d.shape[-1]], d)
+    a = _k2_bits(dev, feat, d, w, block1, alpha, bf16)
+    b = _k2_bits(dev, feat2, d2, w, block1, alpha, bf16)
+    assert torch.equal(a, b)
+    assert torch.isfinite(b.view(torch.float32)).all()
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_k2_bits_do_not_depend_on_a_rows_tile_or_place(dev, bf16):
+    """The same points behind prefixes of 1-40 other points (whose live rows
+    move them to other tiles and tile rows, in both warpgroups' halves in
+    bf16) keep the same bits; so does the chunk behind a fully live
+    prefix."""
+    P, M = 40, 300
+    feat, d, w, block1, alpha = _agg_inputs(dev, M=P + M, K=8)
+    w = _dead_zeros(w * _masks(w.shape, dev, seed=9, keep=0.3), dev, 10)
+    base = _k2_bits(dev, feat[P:], d[P:], w[P:], block1, alpha, bf16)
+    full = w.clone()
+    full[:P] = full[:P].abs() + 0.5
+    for n in (1, 3, 7, 13, 40):
+        for ww in (w, full):
+            got = _k2_bits(dev, feat[P - n:], d[P - n:], ww[P - n:], block1,
+                           alpha, bf16)
+            assert torch.equal(got[n:], base), (n, int((got[n:] != base).sum()))
+
+
+def test_k2_holds_no_host_sync_and_launches_once(dev):
+    """A K2 call (its plan's launches, the body over the device-held tile
+    count) under torch.cuda.set_sync_debug_mode("error"): no host sync;
+    counted as one launch."""
+    feat, d, w, block1, alpha = _agg_inputs(dev, M=501, K=8)
+    w = w * _masks(w.shape, dev, seed=11, keep=0.25)
+    args = (feat, d, w, block1, alpha)
+    for bf16 in (False, True):
+        ref = fused_block1_alpha(*args, K=8, nf=3, df=5, bf16=bf16)
+        torch.cuda.synchronize()
+        n0 = fused_block1_alpha.launches
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fa, al = fused_block1_alpha(*args, K=8, nf=3, df=5, bf16=bf16)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        assert fused_block1_alpha.launches == n0 + 1
+        assert torch.equal(fa, ref[0]) and torch.equal(al, ref[1])
 
 
 # K3 tolerance vs its plain version, per output tensor, relative to the

@@ -131,3 +131,120 @@ def test_k2_wrapper_rejects_bad_inputs(params):
     with pytest.raises(ValueError):
         fused_block1_alpha(*args[:4], tp["alpha_branch"] * 2, K=8, nf=3,
                            df=5, bf16=False)
+
+
+# K2's plan (ops/fused_agg.py k2_plan_plain, csrc/fused_agg.cu's plan
+# launches): masks of about 25% fill (some slots -0.0, which is dead), none
+# live, all live, K = 1, only the last slot live, and an M that is not a
+# multiple of a tile's points
+PLAN_MASKS = {"fill25": (333, 8), "empty": (333, 8), "full": (333, 8),
+              "k1": (301, 1), "last": (333, 8), "ragged": (333, 16)}
+
+
+def _plan_w(kind, seed=7):
+    M, K = PLAN_MASKS[kind]
+    rng = np.random.default_rng(seed)
+    w = rng.random((M, K)).astype(np.float32) + 0.05
+    keep = {"fill25": rng.random((M, K)) < 0.25,
+            "empty": np.zeros((M, K), bool),
+            "full": np.ones((M, K), bool),
+            "k1": rng.random((M, K)) < 0.5,
+            "last": np.arange(K)[None, :].repeat(M, 0) == K - 1,
+            "ragged": rng.random((M, K)) < 0.6}[kind]
+    w = np.where(keep, w, np.where(rng.random((M, K)) < 0.5, 0.0, -0.0))
+    return torch.from_numpy(w.astype(np.float32)), K
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("kind", list(PLAN_MASKS))
+def test_k2_plan_packs_every_live_row_once_in_whole_points(kind, bf16):
+    """Every live row (w != 0, -0.0 dead) lies in exactly one tile, in point
+    order and each point's k in order; a tile holds at most T rows and only
+    whole points; a point with no live row lies in no tile; `held` counts T
+    a tile that holds a row."""
+    from sgnerf_tpu_torch.ops.fused_agg import TILE_ROWS, k2_plan_plain
+    w, K = _plan_w(kind)
+    M, T = w.shape[0], TILE_ROWS[bf16]
+    rows, tile_row0, held = k2_plan_plain(w, K, bf16)
+    live = torch.nonzero((w != 0).reshape(-1)).flatten()
+    assert torch.equal(rows, live)
+    sizes = tile_row0[1:] - tile_row0[:-1]
+    assert tile_row0[0] == 0 and tile_row0[-1] == rows.numel()
+    assert bool((sizes >= 0).all()) and bool((sizes <= T).all())
+    assert held == T * int((sizes > 0).sum())
+    tile_of = torch.repeat_interleave(torch.arange(sizes.numel()), sizes)
+    pts = rows // K
+    # whole points: a point's rows share one tile, and no point spans two
+    for m in torch.unique(pts):
+        assert torch.unique(tile_of[pts == m]).numel() == 1
+    empty = ~(w != 0).any(1)
+    assert not bool(empty[pts].any())
+    assert torch.equal(torch.unique(pts), torch.nonzero(~empty).flatten())
+    if kind == "full":
+        # every slot live: the dense tiles of T // K whole points
+        assert sizes.numel() == -(-M // (T // K))
+        assert bool((sizes[:-1] == T // K * K).all())
+
+
+def _dense_k_sum(feat, d, w, block1, alpha_branch, K, bf16):
+    """The dense K2's reduction: each point's [h w | alpha w] over all K
+    slots, dead ones (+-0 terms) in, added in k order from +0."""
+    from sgnerf_tpu_torch.ops.fused_agg import _block1_alpha_rows
+    h, alpha = _block1_alpha_rows(feat, d, block1, alpha_branch, 3, 5, bf16)
+    terms = torch.cat([h, alpha], dim=-1) * w[..., None]
+    s = torch.zeros_like(terms[:, 0])
+    for k in range(K):
+        s = s + terms[:, k]
+    return s
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("kind", list(PLAN_MASKS))
+def test_packed_plain_k2_equals_plain_k2(params, kind, bf16):
+    """The plain K2 that reduces the plan's tiles, each point's live rows
+    alone in k order from +0, gives the bits of the dense K-sum over all K
+    slots in k order (the kernel before the plan), and a point with no
+    live row reads zero. (PyTorch's own `.sum(1)` of fused_block1_alpha_
+    plain may add in another order: it is held to that within rounding.)"""
+    from sgnerf_tpu_torch.ops.fused_agg import (
+        fused_block1_alpha_packed_plain, fused_block1_alpha_plain)
+    w, K = _plan_w(kind)
+    M = w.shape[0]
+    feat, d, _ = _inputs(11, M=M, K=K)
+    tp = params_from_jax(params)
+    args = (torch.from_numpy(feat), torch.from_numpy(d), w, tp["block1"],
+            tp["alpha_branch"])
+    kw = dict(K=K, nf=3, df=5, bf16=bf16)
+    got = torch.cat(fused_block1_alpha_packed_plain(*args, **kw), dim=-1)
+    ref = _dense_k_sum(*args, K=K, bf16=bf16)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    plain = torch.cat(fused_block1_alpha_plain(*args, **kw), dim=-1)
+    torch.testing.assert_close(got, plain, rtol=1e-6, atol=1e-7)
+    empty = ~(w != 0).any(1)
+    assert not got[empty].any()
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("kind", ["fill25", "ragged", "last"])
+def test_packed_plain_k2_never_adds_a_dead_slot(params, kind, bf16):
+    """Dead slots whose features overflow block1 (w x h is then NaN or inf
+    there, and the dense K-sum reads NaN) leave the packed plain K2 the
+    dense K-sum's bits on the clean inputs, finite."""
+    from sgnerf_tpu_torch.ops.fused_agg import fused_block1_alpha_packed_plain
+    w, K = _plan_w(kind)
+    M = w.shape[0]
+    feat, d, _ = _inputs(12, M=M, K=K)
+    feat, d = torch.from_numpy(feat), torch.from_numpy(d)
+    dead = (w == 0)[..., None]
+    sign = torch.where(torch.rand(feat.shape,
+                                  generator=torch.Generator().manual_seed(4))
+                       < 0.5, -1.0, 1.0)
+    bad = torch.where(dead, 3e38 * sign, feat)
+    tp = params_from_jax(params)
+    rest = (w, tp["block1"], tp["alpha_branch"])
+    ref = _dense_k_sum(feat, d, *rest, K=K, bf16=bf16)
+    assert not torch.isfinite(_dense_k_sum(bad, d, *rest, K=K,
+                                           bf16=bf16)).all()
+    got = torch.cat(fused_block1_alpha_packed_plain(
+        bad, d, *rest, K=K, nf=3, df=5, bf16=bf16), dim=-1)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
